@@ -1,0 +1,422 @@
+"""Engine facade: one search entry point over the graph and brute backends.
+
+``Engine.search(QueryBatch, SearchParams) -> SearchResult`` runs an
+explicit plan→compile→execute pipeline:
+
+  plan     ``api.planner``: a ``CostModel`` calibrated from one probe on the
+           engine's own index picks brute or graph per batch
+  compile  ``api.executor``: the plan signature keys a cache of compiled
+           executables (widened exec plan, cached entry pool, post-filter)
+  execute  a ``Searcher`` backend:
+    graph  single-host HELP traversal (``gather_auto`` on every hop)
+    brute  exact predicate oracle: hard filter + L2 top-k over every row
+           (``fused_auto``)
+
+Value-set (ONE_OF) and range (BETWEEN) batches compile to [lo, hi]
+interval targets that both backends score natively; ONE_OF membership is
+then enforced exactly on every backend's output. MATCH and BETWEEN are hard
+filters on the brute oracle and a soft AUTO penalty under traversal unless
+``enforce_equality=True``.
+
+The engine runs on the device that holds its index (``device=None`` at
+construction → the CUDA card). The sharded and partitioned backends, codec
+scans (``_adc_two_stage``) and quantized indexes are not ported yet and
+raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Optional, Protocol, Union, runtime_checkable
+
+import numpy as np
+import torch
+
+from repro_torch.api import executor as executor_mod
+from repro_torch.api import planner as planner_mod
+from repro_torch.api.executor import Executor
+from repro_torch.api.planner import CostModel, Plan
+from repro_torch.api.query import QueryBatch
+from repro_torch.core import auto as auto_mod
+from repro_torch.core import baselines as baselines_mod
+from repro_torch.core import resolve_device, routing as routing_mod, to_tensor
+from repro_torch.core.auto import DatasetStats, MetricConfig
+from repro_torch.core.graph_ops import INF, INVALID, smallest_k
+from repro_torch.core.help_graph import HelpConfig
+from repro_torch.core.index import FORMAT, StableIndex
+from repro_torch.core.routing import QUANT_MODES, RoutingConfig, SearchResult
+from repro_torch.obs import trace as obs_trace
+
+Tensor = torch.Tensor
+
+BACKENDS = ("auto", "graph", "sharded", "brute", "partitioned")
+QUANT_PARAMS = ("auto",) + QUANT_MODES
+SHARDED_META = "sharded_meta.json"
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchParams:
+    """Consolidated per-request knobs, field for field the reference's.
+
+    ``pool_size=0`` → max(4k, 32), ``pioneer_size=0`` → 8 (capped at the
+    pool), ``rerank_size=0`` → whole pool. ``brute_threshold`` is deprecated
+    (the planner's cost model decides). ``nprobe`` and ``sub_backend``
+    belong to the partitioned backend, which is not ported yet.
+    """
+
+    k: int = 10
+    pool_size: int = 0
+    pioneer_size: int = 0
+    rerank_size: int = 0
+    quant: str = "auto"
+    seed: int = 0
+    enforce_equality: bool = False
+    backend: str = "auto"
+    brute_threshold: Optional[int] = None  # deprecated fixed-N override
+    coarse_max_iters: int = 64
+    refine_max_iters: int = 256
+    use_visited: bool = True
+    nprobe: int = 0
+    sub_backend: str = "auto"
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r} ({BACKENDS})")
+        if self.quant not in QUANT_PARAMS:
+            raise ValueError(f"unknown quant {self.quant!r} ({QUANT_PARAMS})")
+        if self.k <= 0:
+            raise ValueError("k must be positive")
+        if self.nprobe < 0:
+            raise ValueError("nprobe must be nonnegative (0 → auto)")
+        if self.sub_backend not in ("auto", "graph", "brute"):
+            raise ValueError(
+                f"unknown sub_backend {self.sub_backend!r} (auto | graph | brute)"
+            )
+
+    @property
+    def effective_pool(self) -> int:
+        return self.pool_size or max(4 * self.k, 32)
+
+    def routing_config(self, quant_mode: str, enforce: bool) -> RoutingConfig:
+        pool = self.effective_pool
+        return RoutingConfig(
+            k=self.k,
+            pool_size=pool,
+            pioneer_size=self.pioneer_size or min(8, pool),
+            coarse_max_iters=self.coarse_max_iters,
+            refine_max_iters=self.refine_max_iters,
+            use_visited=self.use_visited,
+            enforce_equality=enforce,
+            quant_mode=quant_mode,
+            rerank_size=self.rerank_size,
+        )
+
+
+@runtime_checkable
+class Searcher(Protocol):
+    """Backend contract: execute a compiled plan over an index.
+    ``entry_ids`` is the executor-cached seed pool (graph backend)."""
+
+    name: str
+
+    def search(
+        self, engine: "Engine", queries: QueryBatch, params: SearchParams,
+        plan: Plan, entry_ids: Optional[Tensor] = None,
+    ) -> SearchResult:
+        ...
+
+
+def _mask(engine: "Engine", queries: QueryBatch) -> Optional[Tensor]:
+    return None if queries.mask is None else to_tensor(queries.mask, torch.int32, engine.device)
+
+
+class GraphSearcher:
+    """Single-host HELP-graph traversal."""
+
+    name = "graph"
+
+    def search(self, engine, queries, params, plan, entry_ids=None):
+        idx = engine.index
+        dev = engine.device
+        return routing_mod.search(
+            idx.features, idx.attrs, idx.graph,
+            to_tensor(queries.vectors, torch.float32, dev),
+            to_tensor(queries.targets, torch.int32, dev),
+            idx.metric_cfg, plan.routing_cfg,
+            mask=_mask(engine, queries), entry_ids=entry_ids, seed=params.seed,
+        )
+
+
+class BruteForceSearcher:
+    """Exact predicate oracle: hard filter + L2 ranking over every row.
+
+      * point (MATCH/ANY) predicates delegate to ``brute_force_hybrid``;
+      * ONE_OF / BETWEEN predicates run the same scan with exact
+        set-membership / interval-containment filtering.
+    The code-scan path (``_adc_two_stage``) waits for the quantized slice.
+    """
+
+    name = "brute"
+
+    def search(self, engine, queries, params, plan, entry_ids=None):
+        idx = engine.index
+        dev = engine.device
+        if plan.quant_mode != "none":
+            raise NotImplementedError(
+                "the brute code scan (_adc_two_stage) arrives with the "
+                "quantized slice of the port"
+            )
+        qv = to_tensor(queries.vectors, torch.float32, dev)
+        qa = to_tensor(queries.attrs, torch.int32, dev)
+        if not (queries.has_one_of or queries.has_intervals):
+            return baselines_mod.brute_force_hybrid(
+                idx.features, idx.attrs, qv, qa, params.k, mask=_mask(engine, queries)
+            )
+        sv2 = auto_mod.brute_fused_sqdist(
+            qv, qa, idx.features, idx.attrs, MetricConfig(mode="l2")
+        )
+        return _filtered_topk(
+            sv2, _ok_matrix(engine, queries), params.k, full_evals=idx.features.shape[0]
+        )
+
+
+def _ok_matrix(engine: "Engine", queries: QueryBatch) -> Tensor:
+    """(B, N) admissibility of ONE_OF / BETWEEN batches on the device:
+    containment in [lo, hi] (equality on point dimensions) and exact
+    ONE_OF set membership, the semantics of ``QueryBatch.admissible``."""
+    dev = engine.device
+    xa = engine.index.attrs[None, :, :]
+    mask = _mask(engine, queries)
+    lo, hi = (to_tensor(t, torch.int32, dev)[:, None, :] for t in queries._bounds())
+    okl = (xa >= lo) & (xa <= hi)
+    if queries.has_one_of:
+        allowed = to_tensor(queries.allowed, torch.int32, dev)
+        hard = to_tensor(queries.hard, torch.bool, dev)
+        member = (xa[..., None] == allowed[:, None, :, :]).any(-1)
+        okl = okl & (member | ~hard[:, None, :])
+    if mask is not None:
+        okl = okl | (mask[:, None, :] == 0)
+    return okl.all(-1)
+
+
+def _filtered_topk(
+    sq_scores: Tensor,
+    ok: Tensor,
+    k: int,
+    full_evals: int,
+    ids: Optional[Tensor] = None,
+) -> SearchResult:
+    """Top-k of masked scores → INVALID-padded SearchResult."""
+    b = sq_scores.shape[0]
+    dev = sq_scores.device
+    sq, take = smallest_k(sq_scores.masked_fill(~ok, INF), k)
+    out = take if ids is None else ids.gather(1, take)
+    out = torch.where(torch.isfinite(sq) & (sq < INF / 2), out, INVALID).to(torch.int32)
+    sq = sq.masked_fill(out < 0, INF)
+    return SearchResult(
+        ids=out,
+        dists=torch.sqrt(torch.clamp_min(sq, 0.0)),
+        sqdists=sq,
+        n_dist_evals=torch.full((b,), full_evals, dtype=torch.int32, device=dev),
+        n_hops=torch.zeros((), dtype=torch.int32, device=dev),
+        n_code_evals=torch.zeros((b,), dtype=torch.int32, device=dev),
+    )
+
+
+_SEARCHERS: dict[str, Searcher] = {s.name: s for s in (GraphSearcher(), BruteForceSearcher())}
+
+
+@dataclasses.dataclass
+class Engine:
+    """The one search facade over a single-host ``StableIndex``.
+
+    ``cost_model`` may be injected at construction; otherwise it is
+    calibrated lazily from one probe the first time an auto-plan needs it."""
+
+    index: StableIndex
+    cost_model_override: Optional[CostModel] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
+    executor_max_entries: int = dataclasses.field(
+        default=executor_mod.CACHE_SIZE, repr=False, compare=False
+    )
+    _attrs_np: Optional[np.ndarray] = dataclasses.field(default=None, repr=False, compare=False)
+    _cost_model: Optional[CostModel] = dataclasses.field(default=None, repr=False, compare=False)
+    _executor: Optional[Executor] = dataclasses.field(default=None, repr=False, compare=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.index.device
+
+    @property
+    def host_attrs(self) -> np.ndarray:
+        """Host copy of the attribute matrix (copied once per engine)."""
+        if self._attrs_np is None:
+            self._attrs_np = self.index.attrs.cpu().numpy()
+        return self._attrs_np
+
+    @property
+    def cost_model(self) -> CostModel:
+        """The planner cost model (probe runs on first access unless one
+        was injected)."""
+        if self._cost_model is None:
+            if self.cost_model_override is not None:
+                self._cost_model = self.cost_model_override
+            else:
+                self._cost_model = planner_mod.calibrate(self.index)
+        return self._cost_model
+
+    @property
+    def executor(self) -> Executor:
+        if self._executor is None:
+            self._executor = Executor(self, max_entries=self.executor_max_entries)
+        return self._executor
+
+    def searcher(self, name: str) -> Searcher:
+        if name not in _SEARCHERS:
+            raise NotImplementedError(f"the {name!r} backend is not ported yet")
+        return _SEARCHERS[name]
+
+    # -- construction --------------------------------------------------------
+
+    @classmethod
+    def build(
+        cls,
+        features,
+        attrs,
+        help_cfg: HelpConfig = HelpConfig(),
+        quant_cfg=None,
+        build_graph: bool = True,
+        device=None,
+        **kw,
+    ) -> "Engine":
+        """Build a single-host engine on ``device`` (None → the CUDA card).
+        ``build_graph=False`` skips the HELP construction for scan-only
+        corpora."""
+        return cls(StableIndex.build(
+            features, attrs, help_cfg=help_cfg, quant_cfg=quant_cfg,
+            build_graph=build_graph, device=device, **kw,
+        ))
+
+    @classmethod
+    def from_parts(
+        cls,
+        features,
+        attrs,
+        graph,
+        metric_cfg: MetricConfig,
+        stats: Optional[DatasetStats] = None,
+        help_cfg: HelpConfig = HelpConfig(),
+        device=None,
+    ) -> "Engine":
+        """Wrap prebuilt arrays on ``device`` (None → the CUDA card)."""
+        dev = resolve_device(device)
+        feats_np = features.cpu().numpy() if isinstance(features, Tensor) else np.asarray(features)
+        attrs_np = attrs.cpu().numpy() if isinstance(attrs, Tensor) else np.asarray(attrs)
+        if stats is None:
+            stats = auto_mod.sample_stats(feats_np, attrs_np)
+        return cls(StableIndex(
+            features=to_tensor(feats_np, torch.float32, dev),
+            attrs=to_tensor(attrs_np, torch.int32, dev),
+            graph=to_tensor(graph, torch.int32, dev),
+            metric_cfg=metric_cfg, help_cfg=help_cfg, stats=stats,
+        ))
+
+    # -- introspection -------------------------------------------------------
+
+    @property
+    def n_items(self) -> int:
+        return int(self.index.features.shape[0])
+
+    @property
+    def attr_dim(self) -> int:
+        return int(self.index.attrs.shape[1])
+
+    @property
+    def has_graph(self) -> bool:
+        return int(self.index.graph.shape[1]) > 0
+
+    # -- planning ------------------------------------------------------------
+
+    def _resolve_quant(self, params: SearchParams, backend: str) -> str:
+        if params.quant in ("auto", "none"):
+            return "none"
+        raise ValueError(
+            f"params.quant={params.quant!r} but the index holds 'none' codes"
+        )
+
+    def plan(self, queries: QueryBatch, params: SearchParams) -> Plan:
+        """Resolve (backend, quant_mode, routing_cfg, predicted costs) for
+        one batch; see ``api.planner.make_plan``."""
+        return planner_mod.make_plan(self, queries, params)
+
+    # -- execution -----------------------------------------------------------
+
+    def search(
+        self,
+        queries: Union[QueryBatch, tuple],
+        params: SearchParams = SearchParams(),
+    ) -> SearchResult:
+        """Execute a compiled query batch: plan → executor → backend, on the
+        engine's device. A plain ``(query_vectors, query_attrs)`` tuple is an
+        all-MATCH batch."""
+        if isinstance(queries, tuple):
+            queries = QueryBatch.match(*queries)
+        with obs_trace.span("plan") as sp:
+            plan = self.plan(queries, params)
+            if sp:
+                sp.set("backend", plan.backend)
+                sp.set("quant_mode", plan.quant_mode)
+                sp.set("reason", plan.reason)
+                sp.set("cost_brute", plan.cost_brute)
+                sp.set("cost_graph", plan.cost_graph)
+        return self.executor.run(queries, params, plan)
+
+    def _predicate_filter(
+        self, res: SearchResult, queries: QueryBatch, full: bool
+    ) -> SearchResult:
+        """Hard-filter traversal output: ONE_OF membership always, every
+        predicate (equality / interval containment) when ``full``."""
+        ids_np = res.ids.cpu().numpy()
+        taken = self.host_attrs[np.maximum(ids_np, 0)]  # (B, K, L)
+        ok = to_tensor(
+            queries.admissible_rows(taken, one_of_only=not full), torch.bool, self.device
+        )
+        ok = ok & (res.ids >= 0)
+        # re-sort so survivors stay ascending with INVALID padding at the tail
+        sq, take = smallest_k(res.sqdists.masked_fill(~ok, INF), res.sqdists.shape[1])
+        out = res.ids.masked_fill(~ok, INVALID).gather(1, take)
+        return res._replace(ids=out, dists=torch.sqrt(torch.clamp_min(sq, 0.0)), sqdists=sq)
+
+    # -- persistence ---------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Persist the engine in the single-host ``stable-single-v1``
+        layout, with the planner cost model in meta.json (a graph engine
+        that has not planned yet runs the probe once here)."""
+        extra = {}
+        cm = self._cost_model or self.cost_model_override
+        if cm is None and self.has_graph:
+            cm = self.cost_model
+        if cm is not None:
+            extra["cost_model"] = cm.to_json()
+        self.index.save(path, extra_meta=extra)
+
+    @classmethod
+    def load(cls, path: str, device=None, mmap: bool = False) -> "Engine":
+        """Load a saved single-host engine (either package's) onto
+        ``device`` (None → the CUDA card). A persisted cost model is
+        restored as ``cost_model_override``: load runs no probe."""
+        meta_file = os.path.join(path, "meta.json")
+        if os.path.exists(os.path.join(path, SHARDED_META)):
+            raise NotImplementedError(f"{path} holds a sharded engine; not ported yet")
+        with open(meta_file) as f:
+            meta = json.load(f)
+        if meta.get("format", FORMAT) != FORMAT:
+            raise NotImplementedError(
+                f"{path} holds a {meta['format']!r} engine; only {FORMAT!r} is ported"
+            )
+        saved_cm = meta.get("cost_model")
+        override = planner_mod.cost_model_from_table(saved_cm) if saved_cm else None
+        return cls(StableIndex.load(path, device=device, mmap=mmap), cost_model_override=override)

@@ -1,0 +1,357 @@
+"""Execution planner: calibrated cost model + backend selection.
+
+The planner turns one (QueryBatch, SearchParams) pair into a ``Plan``.
+Backend choice is driven by a ``CostModel`` measured on the engine's own
+index rather than a fixed size threshold:
+
+  brute cost ≈ N full-precision scorings (at the measured scan discount);
+  graph cost ≈ measured candidate scorings per pool slot × pool size,
+               grown logarithmically with corpus size, widened for wide
+               (interval) predicates, plus a fixed dispatch overhead
+               amortized over the batch.
+
+Costs are in full-precision-evaluation units, the currency
+``SearchResult.n_dist_evals`` reports, so one cheap probe traversal at
+build/load time calibrates the model (``calibrate``), or a measured table
+is loaded (``cost_model_from_table``). The probe times the card: its
+decision near the crossover is not deterministic, so callers that need a
+frozen decision pin ``SearchParams(backend=...)`` or inject a model.
+
+The codec terms of ``CostModel`` are kept field for field so a saved model
+round-trips; only exact indexes are ported, so they price nothing yet. The
+sharded and partitioned rules raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import time
+import warnings
+from typing import TYPE_CHECKING, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.api.query import QueryBatch
+from repro_torch.core import routing as routing_mod
+from repro_torch.core.auto import MetricConfig, brute_fused_sqdist
+from repro_torch.core.graph_ops import smallest_k
+from repro_torch.core.routing import RoutingConfig
+
+if TYPE_CHECKING:  # engine imports planner; never the reverse at runtime
+    from repro_torch.api.engine import Engine, SearchParams
+
+__all__ = [
+    "CostModel",
+    "Plan",
+    "calibrate",
+    "calibration_count",
+    "cost_model_from_table",
+    "default_cost_model",
+    "make_plan",
+]
+
+#: Probe-traversal shape used by ``calibrate``.
+PROBE_BATCH = 8
+PROBE_POOL = 32
+#: Pool sizes of the traversal sweep: two points fit slope and intercept.
+PROBE_POOLS = (16, 32)
+#: Corpus-prefix fractions of the brute-scan timing sweep.
+PROBE_N_FRACTIONS = (0.25, 0.5, 1.0)
+
+#: every codec that scores through ADC tables over PQ codes.
+PQ_MODES = ("pq", "pq4", "opq-pq", "opq-pq4")
+
+_CALIBRATION_COUNT = [0]
+
+
+def calibration_count() -> int:
+    """Total calibration probes run so far in this process."""
+    return _CALIBRATION_COUNT[0]
+
+
+def is_pq_mode(mode: str) -> bool:
+    return mode in PQ_MODES
+
+
+def is_packed_mode(mode: str) -> bool:
+    """4-bit codes stored two per byte."""
+    return mode in ("pq4", "opq-pq4")
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Resolved execution plan, inspectable via ``Engine.plan``."""
+
+    backend: str  # graph | brute
+    quant_mode: str  # "none" on every ported path
+    routing_cfg: Optional[RoutingConfig]  # None for the brute backend
+    reason: str  # human-readable planner justification
+    cost_brute: Optional[float] = None  # predicted brute cost (fp-eval units)
+    cost_graph: Optional[float] = None  # predicted graph cost (fp-eval units)
+    sub_backend: str = ""  # partitioned backend only
+    nprobe: int = 0  # partitioned backend only
+
+
+@dataclasses.dataclass(frozen=True)
+class CostModel:
+    """Per-query search-cost predictor in full-precision-eval units."""
+
+    unit_evals: float  # candidate scorings per pool slot at the probe point
+    probe_pool: int  # pool size the probe ran at
+    probe_n: int  # corpus size the probe ran at
+    code_eval_cost: float = 0.25  # one code scoring vs one fp scoring
+    batch_overhead: float = 64.0  # fixed dispatch cost per batch (fp units)
+    brute_eval_cost: float = 1.0  # wall cost of one brute-scan eval vs one
+    # traversal eval, measured by the probe
+    pool_intercept: float = 0.0  # pool-independent scorings per query
+
+    def __post_init__(self):
+        if self.unit_evals <= 0 or self.probe_pool <= 0 or self.probe_n <= 0:
+            raise ValueError("CostModel needs positive probe measurements")
+
+    def _scale(self, n: int) -> float:
+        """Corpus-growth factor: walks lengthen ~logarithmically with N."""
+        return max(1.0, math.log(max(n, 2)) / math.log(max(self.probe_n, 2)))
+
+    def graph_evals(self, *, n: int, pool: int, width: float = 0.0) -> float:
+        """Predicted candidate scorings per query for one traversal."""
+        per_query = self.pool_intercept + self.unit_evals * pool
+        return per_query * self._scale(n) * (1.0 + width)
+
+    def code_cost(self, quant_mode: str) -> float:
+        if is_packed_mode(quant_mode):
+            return 0.5 * self.code_eval_cost
+        return self.code_eval_cost
+
+    def graph_cost(
+        self,
+        *,
+        n: int,
+        pool: int,
+        batch: int = 1,
+        width: float = 0.0,
+        quant_mode: str = "none",
+        rerank: int = 0,
+    ) -> float:
+        """Per-query traversal cost (codec traversals add a rerank)."""
+        evals = self.graph_evals(n=n, pool=pool, width=width)
+        if quant_mode == "none":
+            cost = evals
+        else:
+            cost = self.code_cost(quant_mode) * evals + float(min(rerank or pool, pool))
+        return cost + self.batch_overhead / max(batch, 1)
+
+    def brute_cost(self, *, n: int, pool: int, quant_mode: str = "none") -> float:
+        """Per-query scan cost: N exact scorings at the measured discount."""
+        if is_pq_mode(quant_mode):
+            return (
+                self.brute_eval_cost * self.code_cost(quant_mode) * n
+                + float(min(pool, n))
+            )
+        return self.brute_eval_cost * float(n)
+
+    def to_json(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def cost_model_from_table(table) -> CostModel:
+    """Rebuild a ``CostModel`` from a measured table: the dict/path of a
+    planner benchmark artifact (its ``cost_model`` section) or a bare field
+    dict."""
+    if isinstance(table, (str, bytes)):
+        with open(table) as f:
+            table = json.load(f)
+    d = table.get("cost_model", table)
+    kw = {k: d[k] for k in ("unit_evals", "probe_pool", "probe_n")}
+    for k in ("code_eval_cost", "batch_overhead", "brute_eval_cost", "pool_intercept"):
+        if k in d:
+            kw[k] = d[k]
+    return CostModel(**kw)
+
+
+def default_cost_model(n: int) -> CostModel:
+    """Uncalibrated prior (generic constants)."""
+    return CostModel(unit_evals=4.0, probe_pool=PROBE_POOL, probe_n=max(int(n), 2))
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def calibrate(index, seed: int = 0, time_probe: bool = True) -> CostModel:
+    """Fit a ``CostModel`` from a small probe sweep on ``index``.
+
+    PROBE_BATCH database rows (spread over the corpus) serve as queries
+    with their own attributes as targets; small capped traversals at each
+    ``PROBE_POOLS`` point fit ``unit_evals`` and ``pool_intercept``. With
+    ``time_probe`` it also times the brute scan at the
+    ``PROBE_N_FRACTIONS`` prefixes and the traversal (best of two runs,
+    ending in a device synchronize): the least-squares line through the
+    scan timings gives ``brute_eval_cost`` (scan vs traversal wall cost per
+    eval) and a measured ``batch_overhead``.
+    """
+    _CALIBRATION_COUNT[0] += 1
+    dev = index.features.device
+    n = int(index.features.shape[0])
+    take = torch.from_numpy(
+        np.linspace(0, n - 1, num=min(PROBE_BATCH, n)).astype(np.int64)
+    ).to(dev)
+    qv = index.features[take]
+    qa = index.attrs[take]
+    b = int(qv.shape[0])
+    pools = sorted({min(p, n) for p in PROBE_POOLS})
+
+    def traversal_cfg(pool: int) -> RoutingConfig:
+        return RoutingConfig(
+            k=min(8, pool), pool_size=pool, pioneer_size=min(8, pool),
+            coarse_max_iters=8, refine_max_iters=32,
+        )
+
+    def run_traversal(cfg: RoutingConfig):
+        return routing_mod.search(
+            index.features, index.attrs, index.graph, qv, qa,
+            index.metric_cfg, cfg, seed=seed,
+        )
+
+    per_query: dict[int, float] = {}
+    for pool in pools:
+        per_query[pool] = float(run_traversal(traversal_cfg(pool)).mean_dist_evals)
+    p_hi = pools[-1]
+    if len(pools) >= 2:
+        p_lo = pools[0]
+        slope = (per_query[p_hi] - per_query[p_lo]) / (p_hi - p_lo)
+        intercept = per_query[p_lo] - slope * p_lo
+        if slope <= 0 or intercept < 0:
+            # a degenerate sweep must not give a decreasing or negative
+            # cost curve: fall back to the slope-only fit
+            slope, intercept = per_query[p_hi] / p_hi, 0.0
+    else:
+        slope, intercept = per_query[p_hi] / p_hi, 0.0
+
+    brute_eval_cost = 1.0
+    overhead_kw = {}
+    if time_probe:
+        cfg_hi = traversal_cfg(p_hi)
+
+        def run_brute(ni: int):
+            sv2 = brute_fused_sqdist(
+                qv, qa, index.features[:ni], index.attrs[:ni], MetricConfig(mode="l2")
+            )
+            return smallest_k(sv2, min(cfg_hi.k, ni))[0]
+
+        def best_of_two(fn) -> float:
+            times = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                fn()
+                _sync(dev)
+                times.append(time.perf_counter() - t0)
+            return min(times)
+
+        sizes = sorted({max(int(n * f), 1) for f in PROBE_N_FRACTIONS})
+        t_scan: dict[int, float] = {}
+        for ni in sizes:
+            run_brute(ni)  # warm up off the clock
+            _sync(dev)
+            t_scan[ni] = best_of_two(lambda ni=ni: run_brute(ni))
+        t_graph = best_of_two(lambda: run_traversal(cfg_hi))
+        per_graph_eval = t_graph / max(per_query[p_hi] * b, 1.0)
+        if len(sizes) >= 2:
+            s, t0_fit = np.polyfit(sizes, [t_scan[ni] for ni in sizes], 1)
+            per_brute_eval = max(float(s), 0.0) / b
+            if per_graph_eval > 0 and t0_fit > 0:
+                overhead_kw["batch_overhead"] = float(
+                    np.clip(t0_fit / per_graph_eval, 1.0, 65536.0)
+                )
+        else:
+            per_brute_eval = t_scan[sizes[-1]] / max(b * sizes[-1], 1)
+        if per_graph_eval > 0 and per_brute_eval > 0:
+            brute_eval_cost = float(np.clip(per_brute_eval / per_graph_eval, 0.05, 20.0))
+    return CostModel(
+        unit_evals=max(slope, 1e-3),
+        probe_pool=p_hi,
+        probe_n=n,
+        brute_eval_cost=brute_eval_cost,
+        pool_intercept=max(intercept, 0.0),
+        **overhead_kw,
+    )
+
+
+def predicate_width(queries: QueryBatch) -> float:
+    """Mean fraction of wide (lo < hi interval) attribute dimensions."""
+    if queries.intervals is None:
+        return 0.0
+    wide = queries.intervals[..., 1] > queries.intervals[..., 0]
+    return float(np.mean(wide))
+
+
+def make_plan(engine: "Engine", queries: QueryBatch, params: "SearchParams") -> Plan:
+    """Resolve (backend, quant_mode, routing_cfg, predicted costs) for one
+    batch. Rules, first match wins:
+
+      1. ``params.backend`` override (graph | brute)
+      2. no HELP graph (``build_graph=False``) → "brute"
+      3. deprecated ``params.brute_threshold`` explicitly set → fixed-N rule
+      4. calibrated cost model: brute vs graph at the predicted per-query
+         cost crossover for this (N, pool, predicate width, batch)
+    """
+    if queries.attr_dim != engine.attr_dim:
+        raise ValueError(f"query attr_dim {queries.attr_dim} != index {engine.attr_dim}")
+    if params.backend in ("sharded", "partitioned"):
+        raise NotImplementedError(
+            f"backend={params.backend!r}: the {params.backend} backend is not "
+            "ported yet; the port serves the graph and brute backends"
+        )
+    cost_brute = cost_graph = None
+    if params.backend != "auto":
+        backend = params.backend
+        if backend == "graph" and not engine.has_graph:
+            raise ValueError("backend='graph' but the index has no graph")
+        reason = "explicit backend override"
+    elif not engine.has_graph:
+        backend, reason = "brute", "index built without a HELP graph"
+    elif params.brute_threshold is not None:
+        warnings.warn(
+            "SearchParams.brute_threshold is deprecated: the planner chooses "
+            "brute vs graph from a calibrated cost model (Engine.cost_model). "
+            "The explicit value is honored as a hard override; leave it unset "
+            "to use the cost model.",
+            DeprecationWarning,
+            stacklevel=3,
+        )
+        backend = "brute" if engine.n_items <= params.brute_threshold else "graph"
+        rel = "≤" if backend == "brute" else ">"
+        reason = (
+            f"N={engine.n_items} {rel} brute_threshold={params.brute_threshold} "
+            "(deprecated override)"
+        )
+    else:
+        cm = engine.cost_model
+        n = engine.n_items
+        pool = min(params.effective_pool, n)
+        cost_brute = cm.brute_cost(n=n, pool=pool)
+        # the width surcharge models the executor's cut-widening for the
+        # exact-membership backfill: ONE_OF always, intervals when enforced
+        widens = queries.has_one_of or (params.enforce_equality and queries.has_intervals)
+        cost_graph = cm.graph_cost(
+            n=n, pool=pool, batch=queries.batch_size,
+            width=predicate_width(queries) if widens else 0.0,
+            rerank=params.rerank_size,
+        )
+        backend = "brute" if cost_brute <= cost_graph else "graph"
+        reason = (
+            f"cost model: brute≈{cost_brute:.0f} vs graph≈{cost_graph:.0f} "
+            f"fp-eval units/query → {backend}"
+        )
+
+    quant_mode = engine._resolve_quant(params, backend)
+    routing_cfg = None
+    if backend == "graph":
+        routing_cfg = params.routing_config(quant_mode, params.enforce_equality)
+    return Plan(
+        backend=backend, quant_mode=quant_mode, routing_cfg=routing_cfg,
+        reason=reason, cost_brute=cost_brute, cost_graph=cost_graph,
+    )

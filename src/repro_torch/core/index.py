@@ -1,0 +1,187 @@
+"""Public STABLE index API of the port.
+
+``StableIndex`` bundles the AUTO-calibrated metric, the HELP graph and the
+dynamic router behind build/search/save/load. ``save``/``load`` use the
+reference's ``stable-single-v1`` layout (``features.npy``, ``attrs.npy``,
+``graph.npy``, ``meta.json``), so each package loads the other's
+directory. Only exact (uncompressed) indexes are ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import auto as auto_mod
+from repro_torch.core import help_graph as help_mod
+from repro_torch.core import resolve_device, routing as routing_mod, to_tensor
+from repro_torch.core.auto import DatasetStats, MetricConfig
+from repro_torch.core.help_graph import BuildReport, HelpConfig
+from repro_torch.core.routing import RoutingConfig, SearchResult
+
+Tensor = torch.Tensor
+
+FORMAT = "stable-single-v1"
+
+
+def _no_codec(quant_cfg) -> None:
+    """Reject a codec: ``quant_cfg`` is None, "none" or a config whose
+    ``mode`` is "none"."""
+    mode = getattr(quant_cfg, "mode", quant_cfg)
+    if quant_cfg is not None and mode != "none":
+        raise NotImplementedError(
+            f"quant mode {mode!r}: compressed indexes arrive with the quantized "
+            "slice of the port; build an exact index (quant_cfg=None)"
+        )
+
+
+@dataclasses.dataclass
+class StableIndex:
+    features: Tensor  # (N, M) f32
+    attrs: Tensor  # (N, L) int32 (numerically mapped)
+    graph: Tensor  # (N, Γ) int32 HELP adjacency
+    metric_cfg: MetricConfig
+    help_cfg: HelpConfig
+    stats: DatasetStats
+    report: Optional[BuildReport] = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.features.device
+
+    # -- construction --------------------------------------------------------
+
+    @classmethod
+    def build(
+        cls,
+        features,
+        attrs,
+        help_cfg: HelpConfig = HelpConfig(),
+        metric_mode: str = "auto",
+        alpha: Optional[float] = None,
+        nhq_weight: float = 1.0,
+        stats_seed: int = 0,
+        quant_cfg=None,
+        build_graph: bool = True,
+        device=None,
+    ) -> "StableIndex":
+        """Calibrate α on the host (numpy, bit-equal to the reference), then
+        build the HELP graph on ``device`` (None → the CUDA card).
+        ``build_graph=False`` stores an empty (N, 0) adjacency for corpora
+        that will only ever be scanned."""
+        _no_codec(quant_cfg)
+        dev = resolve_device(device)
+        feats_np = np.asarray(features, np.float32)
+        attrs_np = np.asarray(attrs, np.int32)
+        stats = auto_mod.sample_stats(feats_np, attrs_np, seed=stats_seed)
+        metric_cfg = MetricConfig(
+            mode=metric_mode,
+            alpha=float(alpha) if alpha is not None else stats.alpha,
+            nhq_weight=nhq_weight,
+        )
+        feats = to_tensor(feats_np, torch.float32, dev)
+        attrs_t = to_tensor(attrs_np, torch.int32, dev)
+        if build_graph:
+            graph, _, report = help_mod.build_help_graph(feats, attrs_t, metric_cfg, help_cfg)
+        else:
+            graph = torch.zeros((feats.shape[0], 0), dtype=torch.int32, device=dev)
+            report = None
+        return cls(
+            features=feats, attrs=attrs_t, graph=graph, metric_cfg=metric_cfg,
+            help_cfg=help_cfg, stats=stats, report=report,
+        )
+
+    # -- search ---------------------------------------------------------------
+
+    def search(
+        self,
+        qv,
+        qa,
+        k: int = 10,
+        routing_cfg: Optional[RoutingConfig] = None,
+        mask=None,
+        seed: int = 0,
+    ) -> SearchResult:
+        """Legacy keyword entry point (prefer ``repro_torch.api.Engine``);
+        runs on the index's device."""
+        cfg = routing_cfg or RoutingConfig(k=k, pool_size=max(4 * k, 32))
+        if cfg.k != k:
+            cfg = dataclasses.replace(cfg, k=k)
+        return routing_mod.search(
+            self.features, self.attrs, self.graph, qv, qa, self.metric_cfg, cfg,
+            mask=mask, seed=seed,
+        )
+
+    # -- persistence ----------------------------------------------------------
+
+    def save(self, path: str, extra_meta: Optional[dict] = None) -> None:
+        """Write the ``stable-single-v1`` layout; ``extra_meta`` keys (e.g.
+        the planner cost model) ride along in meta.json."""
+        os.makedirs(path, exist_ok=True)
+        np.save(os.path.join(path, "features.npy"), self.features.cpu().numpy())
+        np.save(os.path.join(path, "attrs.npy"), self.attrs.cpu().numpy())
+        np.save(os.path.join(path, "graph.npy"), self.graph.cpu().numpy())
+        meta = {
+            "format": FORMAT,
+            "metric_cfg": dataclasses.asdict(self.metric_cfg),
+            "help_cfg": dataclasses.asdict(self.help_cfg),
+            "stats": dataclasses.asdict(self.stats),
+            "quant": None,
+            **(extra_meta or {}),
+        }
+        tmp = os.path.join(path, "meta.json.tmp")
+        with open(tmp, "w") as f:
+            json.dump(meta, f, indent=2)
+        os.replace(tmp, os.path.join(path, "meta.json"))
+
+    @classmethod
+    def load(cls, path: str, device=None, mmap: bool = False) -> "StableIndex":
+        """Read a ``stable-single-v1`` directory (either package's) onto
+        ``device`` (None → the CUDA card). ``mmap`` streams the arrays from
+        the page cache instead of reading them into host RAM first."""
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        if meta.get("format", FORMAT) != FORMAT:
+            raise ValueError(f"{path}: format {meta['format']!r} is not {FORMAT!r}")
+        if meta.get("quant") is not None:
+            raise NotImplementedError(
+                f"{path} holds a compressed index; compressed indexes arrive "
+                "with the quantized slice of the port"
+            )
+        mode = "r" if mmap else None
+
+        def arr(name):
+            return np.load(os.path.join(path, name), mmap_mode=mode)
+
+        return index_from_numpy(
+            arr("features.npy"), arr("attrs.npy"), arr("graph.npy"),
+            meta["metric_cfg"], meta["help_cfg"], meta["stats"], device,
+        )
+
+
+def index_from_numpy(
+    features: np.ndarray,
+    attrs: np.ndarray,
+    graph: np.ndarray,
+    metric_cfg: dict,
+    help_cfg: dict,
+    stats: dict,
+    device=None,
+) -> StableIndex:
+    """A port ``StableIndex`` from a reference index's arrays (as numpy)
+    and its dataclasses (as dicts, e.g. ``dataclasses.asdict``), placed on
+    ``device`` (None → the CUDA card). Both packages then score and
+    traverse the same graph."""
+    dev = resolve_device(device)
+    return StableIndex(
+        features=to_tensor(features, torch.float32, dev),
+        attrs=to_tensor(attrs, torch.int32, dev),
+        graph=to_tensor(graph, torch.int32, dev),
+        metric_cfg=MetricConfig(**metric_cfg),
+        help_cfg=HelpConfig(**help_cfg),
+        stats=DatasetStats(**stats),
+    )
