@@ -13,16 +13,27 @@ Phases:
   2. kernels: gather_auto at a refine hop (B=128, C=1280) and an NN-descent
      block (B=2048, C=520), fused_auto at (B=128, N) - point, interval and
      masked targets, auto and l2 modes - against their plain versions, with
-     a bitwise batch-invariance check and CUDA-event timings
+     a bitwise batch-invariance check and CUDA-event timings; adc_scan
+     (K=256) and adc_scan4 (K=16) at (B=128, N, S=64), bit for bit against
+     their plain versions, batch-invariant, adc_scan4 on packed codes equal
+     to adc_scan on the same codes unpacked, plus a small odd-S case
   3. small input (N = 20,000): the main path on the card against the same
      path on the CPU (plain versions); MATCH recall@10 must reach 0.5 on the
-     card and stay within 0.02 of the CPU's
+     card and stay within 0.02 of the CPU's; then Engine.build with pq4 and
+     pq codecs (S=64) on both, graph and brute MATCH recall@10 against the
+     exact oracle within 0.02 of the CPU's
   4. main path: Engine.build on the sift profile, then Engine.search on the
      graph backend and on the brute oracle for MATCH, subset, ONE_OF and
      BETWEEN batches of 128 (recall@10, latency, QPS, evals, hops), a pool
-     sweep for MATCH, one auto-planned search (the planner's probe), and
-     one profiled graph and brute search (device busy share, top kernels)
-  5. a JSON line of every kernel's launches in phase 4, error and times
+     sweep for MATCH and one auto-planned search (the planner's probe).
+     Then the quantized slice on the same graph: each codec (sq8, pq, pq4,
+     opq-pq, opq-pq4; S=64) trained and attached to the index, MATCH and
+     ONE_OF searched on both backends against the exact oracle (brute-ADC
+     MATCH recall@10 must reach 0.5 for the PQ family). Last, profiled
+     graph and brute searches, exact and pq (device busy share, top kernels)
+  5. a JSON line of every kernel's launches in phase 4 (the exact and the
+     quantized path, each counted from 0; a kernel of a path that the path
+     never launched fails the run), error and times
 
 At N = 1M this dataset's graph recall is low (the AUTO-built HELP graph
 splits by attribute combination; the reference does the same): it is
@@ -35,6 +46,7 @@ Any failure exits non-zero before the last line, which is exactly
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -57,6 +69,10 @@ GATHER_RTOL = 1e-5
 #: scaled by the penalty (1 + sa/α)² in auto mode.
 FUSED_RTOL_NORMS, FUSED_ATOL = 1e-5, 1e-6
 MATCH_RECALL_FLOOR = 0.5
+#: ADC subspaces: the pq_subspaces of the repo's quant sweep
+#: (benchmarks/paper_benchmarks.py:360); 2 dims each at M = 128.
+ADC_S = 64
+QUANT_MODES = ("sq8", "pq", "pq4", "opq-pq", "opq-pq4")
 #: phase 3: corpus size where both packages reach MATCH recall@10 0.986 on
 #: the CPU, and how far the card's recall may sit from the CPU's (float
 #: sums in another order change a few graph edges)
@@ -231,6 +247,109 @@ def check_kernels(dev, ds, alpha: float, seed: int) -> dict:
     return report
 
 
+def check_adc_kernels(dev, ds, alpha: float, seed: int) -> dict:
+    """Phase 2: adc_scan (K = 256) and adc_scan4 (K = 16) at the brute
+    path's shape (B = 128, N, S = 64), bit for bit against their plain
+    versions. Codes and tables are random (uniform codes, tables >= 0)."""
+    from repro_torch.core import to_tensor
+    from repro_torch.kernels.adc_scan.ops import (
+        adc_scan4_ref, adc_scan4_scores, adc_scan_ref, adc_scan_scores,
+    )
+    from repro_torch.quant import pack_nibbles
+
+    rng = np.random.default_rng(seed + 1)
+    b, s = 128, ADC_S
+    n = ds.attrs.shape[0]
+    db_a = to_tensor(ds.attrs, torch.int32, dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lut = torch.rand((b, s, 256), generator=g, device=dev) * 100
+    codes = torch.randint(0, 256, (n, s), generator=g, device=dev, dtype=torch.uint8)
+    lut4, codes4 = lut[:, :, :16].contiguous(), (codes & 0xF).contiguous()
+    packed = pack_nibbles(codes4)
+    kernels = {
+        "adc_scan": (adc_scan_scores, adc_scan_ref, lut, codes),
+        "adc_scan4": (adc_scan4_scores, adc_scan4_ref, lut4, packed),
+    }
+    stats = {name: dict(max_abs_err=0.0, bitwise=True, invariant=True) for name in kernels}
+    packed_equals_unpacked = True
+    rows = rng.integers(0, n, b)
+
+    def one_case(tag, name, fn, ref, lt, cd, qa, xa, mode, mask):
+        got = fn(lt, cd, qa, xa, alpha, mode, mask)
+        want = ref(lt, cd, qa, xa, alpha, mode, mask)
+        torch.cuda.synchronize()
+        err = float((got.double() - want.double()).abs().max())
+        st = stats[name]
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        st["bitwise"] &= bool(torch.equal(got, want))
+        alone = fn(lt[:1].contiguous(), cd, qa[:1].contiguous(), xa, alpha, mode,
+                   None if mask is None else mask[:1].contiguous())
+        st["invariant"] &= bool(torch.equal(alone[0], got[0]))
+        log(f"  {name:9s} {tag} {mode:4s} max|err|={err:.3e} bitwise={torch.equal(got, want)}")
+        return got
+
+    for tname, (qa_np, mask_np) in target_cases(rng, ds.attrs[rows], ds.labels_per_dim).items():
+        qa = to_tensor(qa_np, torch.int32, dev)
+        mask = None if mask_np is None else to_tensor(mask_np, torch.int32, dev)
+        for mode in ("auto", "l2"):
+            for name, (fn, ref, lt, cd) in kernels.items():
+                got = one_case(f"B={b} N={n} S={s} {tname:8s}", name, fn, ref, lt, cd, qa, db_a,
+                               mode, mask)
+                if name == "adc_scan4":
+                    unpacked = adc_scan_scores(lut4, codes4, qa, db_a, alpha, mode, mask)
+                    packed_equals_unpacked &= bool(torch.equal(got, unpacked))
+                    del unpacked
+                del got
+    # odd S: the 4-bit scanner stops at S, the pad nibble is never read
+    s_odd, n_odd = 7, 10007
+    lut_o = lut4[:16, :s_odd].contiguous()
+    codes_o = codes4[:n_odd, :s_odd].contiguous()
+    for tname, (qa_np, mask_np) in target_cases(rng, ds.attrs[rows[:16]], ds.labels_per_dim).items():
+        qa = to_tensor(qa_np, torch.int32, dev)
+        mask = None if mask_np is None else to_tensor(mask_np, torch.int32, dev)
+        for mode in ("auto", "l2"):
+            got = one_case(f"B=16 N={n_odd} S={s_odd} {tname:8s}", "adc_scan4", adc_scan4_scores,
+                           adc_scan4_ref, lut_o, pack_nibbles(codes_o), qa, db_a[:n_odd], mode, mask)
+            unpacked = adc_scan_scores(lut_o, codes_o, qa, db_a[:n_odd], alpha, mode, mask)
+            packed_equals_unpacked &= bool(torch.equal(got, unpacked))
+    for name, st in stats.items():
+        if not st["bitwise"]:
+            raise SystemExit(f"{name} is not bitwise equal to its plain version "
+                             f"(max|err| {st['max_abs_err']:.3e})")
+        if not st["invariant"]:
+            raise SystemExit(f"{name}: row 0 alone is not bitwise equal to row 0 in the batch")
+    if not packed_equals_unpacked:
+        raise SystemExit("adc_scan4 on packed codes differs from adc_scan on the unpacked codes")
+    log(f"  adc_scan4 on packed codes == adc_scan on the unpacked codes, bitwise: "
+        f"{packed_equals_unpacked}")
+
+    report = {}
+    qa = to_tensor(ds.attrs[rows], torch.int32, dev)
+    for name, (fn, ref, lt, cd) in kernels.items():
+        ms = cuda_ms(lambda: fn(lt, cd, qa, db_a, alpha, "l2"))
+        plain_ms = cuda_ms(lambda: ref(lt, cd, qa, db_a, alpha, "l2"), reps=5)
+        k = lt.shape[2]
+        bytes_ = cd.numel() + lt.numel() * 4 + b * n * 4  # codes, tables, scores (l2 mode)
+        ops = b * n * (s + 1)  # one add per subspace and the clamp
+        bound_ms = max(bytes_ / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS) * 1e3
+        bound_by = "bytes" if bytes_ / PEAK_BYTES_PER_S >= ops / PEAK_F32_FLOPS else "operations"
+        log(f"  {name} B={b} N={n} S={s} K={k} l2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}); {b * n * s / ms / 1e9:.1f} G lookups/s")
+        report[name] = dict(
+            max_abs_err=stats[name]["max_abs_err"], worst_err_over_tol=0.0,
+            bitwise_equal=stats[name]["bitwise"], bitwise_batch_invariant=stats[name]["invariant"],
+            shape=f"B={b} N={n} S={s} K={k} L={ds.attr_dim} (brute ADC scan, l2)",
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            # no single PyTorch call computes this: the one-hot product
+            # would need an (N, S*K) one-hot of N*S*K*4 bytes (64 GB at 1M)
+            library_ms=None,
+        )
+    report["adc_scan4"]["packed_equals_unpacked"] = packed_equals_unpacked
+    del lut, codes, lut4, codes4, packed, db_a
+    torch.cuda.empty_cache()
+    return report
+
+
 def predicate_batches(ds, b: int = 128) -> dict:
     """MATCH, subset (active=[0, 1]), ONE_OF and BETWEEN batches of b."""
     from repro_torch.api import ANY, BETWEEN, MATCH, ONE_OF, Query, QueryBatch
@@ -281,7 +400,35 @@ def check_small_input(dev, seed: int) -> dict:
         raise SystemExit(f"MATCH recall@10 on the card {card:.4f} < {MATCH_RECALL_FLOOR}")
     if abs(card - cpu) > SMALL_RECALL_GAP:
         raise SystemExit(f"card recall {card:.4f} vs CPU {cpu:.4f}: gap > {SMALL_RECALL_GAP}")
-    return {"n": SMALL_N, "recall_card": card, "recall_cpu": cpu}
+    out = {"n": SMALL_N, "recall_card": card, "recall_cpu": cpu}
+    for mode in ("pq4", "pq"):
+        t0 = time.perf_counter()
+        on_card = quant_match_recall(dev, ds, mode)
+        t1 = time.perf_counter()
+        on_cpu = quant_match_recall(torch.device("cpu"), ds, mode)
+        log(f"  N={SMALL_N} {mode} S={ADC_S}: MATCH recall@10 card {on_card}, CPU {on_cpu} "
+            f"(card {t1 - t0:.1f} s, CPU {time.perf_counter() - t1:.1f} s)")
+        for backend, r in on_card.items():
+            if abs(r - on_cpu[backend]) > SMALL_RECALL_GAP:
+                raise SystemExit(f"{mode} {backend}: card recall {r:.4f} vs CPU "
+                                 f"{on_cpu[backend]:.4f}: gap > {SMALL_RECALL_GAP}")
+        out[mode] = {"card": on_card, "cpu": on_cpu}
+    return out
+
+
+def quant_match_recall(dev, ds, mode: str) -> dict:
+    """Engine.build with a codec, then MATCH recall@10 of the graph and
+    brute backends against the exact oracle."""
+    from repro_torch.api import Engine, QueryBatch, SearchParams
+    from repro_torch.core.baselines import recall_at_k
+    from repro_torch.quant import QuantConfig
+
+    eng = Engine.build(ds.features, ds.attrs, quant_cfg=QuantConfig(mode, pq_subspaces=ADC_S),
+                       device=dev)
+    q = QueryBatch.match(ds.query_features[:128], ds.query_attrs[:128])
+    oracle = eng.search(q, SearchParams(k=10, backend="brute", quant="none")).ids.cpu()
+    return {b: recall_at_k(eng.search(q, SearchParams(k=10, backend=b)).ids.cpu(), oracle, 10)
+            for b in ("graph", "brute")}
 
 
 def profile_search(eng, q, params) -> dict:
@@ -322,9 +469,10 @@ def check_result(res, n: int, b: int, k: int = 10) -> None:
         raise SystemExit("result distances not finite and ascending")
 
 
-def run_main_path(dev, ds, reps: int = 5) -> dict:
-    """Phase 4: Engine.build, then graph and brute searches per class, a
-    MATCH pool sweep, one auto-planned search and two profiled searches."""
+def run_main_path(dev, ds, reps: int = 5):
+    """Phase 4, exact: Engine.build, then graph and brute searches per
+    class, a MATCH pool sweep and one auto-planned search. Returns the
+    results and the engine."""
     from repro_torch.api import Engine, SearchParams
     from repro_torch.core.baselines import recall_at_k
     from repro_torch.kernels.fused_auto.ops import fused_auto
@@ -400,10 +548,75 @@ def run_main_path(dev, ds, reps: int = 5) -> dict:
         f"{recall_at_k(res.ids.cpu(), oracle, 10):.4f}; cost model {eng.cost_model.to_json()}")
     out["auto_plan"] = dict(backend=plan.backend, reason=plan.reason,
                             cost_model=eng.cost_model.to_json())
-    if dev.type == "cuda":  # last: searches timed after the profiler run slower
-        out["profile"] = {b: profile_search(eng, q, SearchParams(k=10, backend=b))
-                          for b in ("graph", "brute")}
-    return out
+    return out, eng
+
+
+def run_quant_path(dev, ds, eng, reps: int = 5):
+    """Phase 4, quantized: train each codec over the built index's rows and
+    attach it to the same graph, then search MATCH and ONE_OF on both
+    backends against the exact oracle. Returns the results and the pq
+    engine (profiled last)."""
+    from repro_torch.api import Engine, SearchParams
+    from repro_torch.core.baselines import recall_at_k
+    from repro_torch.quant import QuantConfig, QuantizedVectors, is_pq_mode
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    batches = predicate_batches(ds)
+    classes = {c: batches[c] for c in ("MATCH", "ONE_OF")}
+    oracle = {c: eng.search(q, SearchParams(k=10, backend="brute")).ids.cpu()
+              for c, q in classes.items()}
+    feats = eng.index.features
+    out, keep = {}, None
+    for mode in QUANT_MODES:
+        t0 = time.perf_counter()
+        store = QuantizedVectors.build(feats, QuantConfig(mode, pq_subspaces=ADC_S))
+        sync()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = store.encode_rows(feats)
+        sync()
+        encode_s = time.perf_counter() - t0
+        if not torch.equal(again, store.codes):
+            raise SystemExit(f"{mode}: encode_rows disagrees with the codes built")
+        del again
+        qeng = Engine(dataclasses.replace(eng.index, quant=store))
+        row = dict(train_s=build_s - encode_s, encode_s=encode_s,
+                   code_bytes_per_row=store.code_bytes_per_row, classes={})
+        log(f"  {mode:7s} S={ADC_S}: train {build_s - encode_s:.2f} s, encode {encode_s:.2f} s, "
+            f"{store.code_bytes_per_row} B/row ({store.code_bytes / 1e6:.1f} MB)")
+        for cname, q in classes.items():
+            for backend in ("graph", "brute"):
+                params = SearchParams(k=10, backend=backend)
+                plan = qeng.plan(q, params)
+                lat = []
+                for _ in range(reps):
+                    t1 = time.perf_counter()
+                    res = qeng.search(q, params)
+                    sync()
+                    lat.append(time.perf_counter() - t1)
+                med = statistics.median(lat)
+                check_result(res, qeng.n_items, q.batch_size)
+                rec = recall_at_k(res.ids.cpu(), oracle[cname], 10)
+                row["classes"][f"{cname}/{backend}"] = r = dict(
+                    codec=plan.quant_mode, recall_at_10=rec, median_ms=med * 1e3,
+                    qps=q.batch_size / med, fp_evals=res.mean_dist_evals,
+                    code_evals=res.mean_code_evals, hops=int(res.n_hops),
+                )
+                log(f"    {cname:6s} {backend:5s} ({plan.quant_mode:7s}) recall@10={rec:.4f} "
+                    f"{r['median_ms']:.2f} ms ({r['qps']:.0f} QPS) fp evals {r['fp_evals']:.1f} "
+                    f"code evals {r['code_evals']:.1f} hops {r['hops']}")
+        brute_match = row["classes"]["MATCH/brute"]["recall_at_10"]
+        if is_pq_mode(mode) and brute_match < MATCH_RECALL_FLOOR:
+            raise SystemExit(f"{mode}: brute-ADC MATCH recall@10 {brute_match:.4f} "
+                             f"< {MATCH_RECALL_FLOOR}")
+        out[mode] = row
+        if mode == "pq":
+            keep = qeng
+        del store, qeng
+    return out, keep
 
 
 def main(argv=None) -> int:
@@ -422,7 +635,9 @@ def main(argv=None) -> int:
     sys.path.insert(0, SRC)
     from repro_torch.data.synthetic import make_hybrid_dataset
     from repro_torch.core.auto import sample_stats
+    from repro_torch.api import SearchParams
     from repro_torch.kernels import build
+    from repro_torch.kernels.adc_scan.ops import adc_scan4_scores, adc_scan_scores
     from repro_torch.kernels.fused_auto.ops import fused_auto
     from repro_torch.kernels.gather_auto.ops import gather_auto
 
@@ -451,19 +666,39 @@ def main(argv=None) -> int:
     # ---- phase 2: kernels against their plain versions
     log("[2] kernels against their plain versions")
     kern = check_kernels(dev, ds, alpha, args.seed)
+    kern.update(check_adc_kernels(dev, ds, alpha, args.seed))
 
     # ---- phase 3: a small input against the CPU's plain versions
     log("[3] small input: the main path on the card against the CPU")
     small = check_small_input(dev, args.seed)
 
-    # ---- phase 4: the main path; launch counts start from 0 here
-    log("[4] main path: Engine.build + Engine.search (graph, brute)")
-    gather_auto.launches = 0
-    fused_auto.launches = 0
-    t0 = time.perf_counter()
-    main_out = run_main_path(dev, ds)
-    launches = {"gather_auto": gather_auto.launches, "fused_auto": fused_auto.launches}
-    log(f"  main path {time.perf_counter() - t0:.2f} s; launches {launches}")
+    # ---- phase 4: the main path, exact then quantized; each path's launch
+    # counts start from 0 just before it and are read just after it
+    log("[4] main path: Engine.build + Engine.search (graph, brute), exact then quantized")
+    wrappers = {"gather_auto": gather_auto, "fused_auto": fused_auto,
+                "adc_scan": adc_scan_scores, "adc_scan4": adc_scan4_scores}
+
+    def drive(path, kernels, *args):
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        out = path(*args)
+        counts = {name: w.launches for name, w in wrappers.items()}
+        log(f"  {path.__name__}: {time.perf_counter() - t0:.2f} s; launches {counts}")
+        idle = [k for k in kernels if counts[k] == 0]
+        if idle:
+            raise SystemExit(f"{path.__name__}: kernels not launched: {idle}")
+        return out, counts
+
+    (main_out, eng), exact_launches = drive(
+        run_main_path, ("gather_auto", "fused_auto"), dev, ds)
+    (quant_out, pq_eng), quant_launches = drive(run_quant_path, tuple(wrappers), dev, ds, eng)
+    launches = {k: exact_launches[k] + quant_launches[k] for k in wrappers}
+    # last: searches timed after the profiler run slower; not counted
+    q = predicate_batches(ds)["MATCH"]
+    profiles = {f"{tag}/{b}": profile_search(e, q, SearchParams(k=10, backend=b))
+                for tag, e in (("exact", eng), ("pq", pq_eng)) for b in ("graph", "brute")}
+    del eng, pq_eng
 
     # ---- phase 5: the kernels line
     sources = {
@@ -471,6 +706,10 @@ def main(argv=None) -> int:
                         "src/repro/kernels/gather_auto/gather_auto.py:73"),
         "fused_auto": ("src/repro_torch/kernels/csrc/fused_auto.cu",
                        "src/repro/kernels/fused_auto/fused_auto.py:98"),
+        "adc_scan": ("src/repro_torch/kernels/csrc/adc_scan.cu",
+                     "src/repro/kernels/adc_scan/adc_scan.py:102"),
+        "adc_scan4": ("src/repro_torch/kernels/csrc/adc_scan.cu",
+                      "src/repro/kernels/adc_scan/adc_scan.py:160"),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -482,11 +721,11 @@ def main(argv=None) -> int:
          "bitwise_batch_invariant": kern[name]["bitwise_batch_invariant"]}
         for name, (src, rep) in sources.items()
     ]}
-    log("[5] summary " + json.dumps({"n": args.n, "main_path": main_out, "small_input": small,
+    log("[5] summary " + json.dumps({"n": args.n, "main_path": main_out, "quantized": quant_out,
+                                     "profiles": profiles, "small_input": small,
+                                     "launches": {"exact": exact_launches,
+                                                  "quantized": quant_launches},
                                      "gather_descent_block": kern["gather_auto"]["descent_block"]}))
-    failed = [n for n, c in launches.items() if c == 0]
-    if failed:
-        raise SystemExit(f"kernels not launched on the main path: {failed}")
     log(gpu_line())
     log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

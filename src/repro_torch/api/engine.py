@@ -8,9 +8,13 @@ explicit plan→compile→execute pipeline:
   compile  ``api.executor``: the plan signature keys a cache of compiled
            executables (widened exec plan, cached entry pool, post-filter)
   execute  a ``Searcher`` backend:
-    graph  single-host HELP traversal (``gather_auto`` on every hop)
+    graph  single-host HELP traversal (``gather_auto`` on every hop; on a
+           quantized index over codes, then an exact ``gather_auto`` rerank
+           of the pool head)
     brute  exact predicate oracle: hard filter + L2 top-k over every row
-           (``fused_auto``)
+           (``fused_auto``); on a PQ-quantized index an ADC scan of every
+           code (``adc_scan`` / ``adc_scan4``) and an exact rerank of the
+           pool
 
 Value-set (ONE_OF) and range (BETWEEN) batches compile to [lo, hi]
 interval targets that both backends score natively; ONE_OF membership is
@@ -19,9 +23,8 @@ filters on the brute oracle and a soft AUTO penalty under traversal unless
 ``enforce_equality=True``.
 
 The engine runs on the device that holds its index (``device=None`` at
-construction → the CUDA card). The sharded and partitioned backends, codec
-scans (``_adc_two_stage``) and quantized indexes are not ported yet and
-raise ``NotImplementedError``.
+construction → the CUDA card). The sharded and partitioned backends are
+not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -45,8 +48,12 @@ from repro_torch.core.auto import DatasetStats, MetricConfig
 from repro_torch.core.graph_ops import INF, INVALID, smallest_k
 from repro_torch.core.help_graph import HelpConfig
 from repro_torch.core.index import FORMAT, StableIndex
-from repro_torch.core.routing import QUANT_MODES, RoutingConfig, SearchResult
+from repro_torch.core.routing import RoutingConfig, SearchResult
+from repro_torch.kernels.gather_auto.ops import gather_auto
 from repro_torch.obs import trace as obs_trace
+from repro_torch.quant import (
+    QUANT_MODES, QuantConfig, QuantizedVectors, adc_scan, is_pq_mode,
+)
 
 Tensor = torch.Tensor
 
@@ -145,6 +152,7 @@ class GraphSearcher:
             to_tensor(queries.targets, torch.int32, dev),
             idx.metric_cfg, plan.routing_cfg,
             mask=_mask(engine, queries), entry_ids=entry_ids, seed=params.seed,
+            quant=idx.quant if plan.quant_mode != "none" else None,
         )
 
 
@@ -153,8 +161,10 @@ class BruteForceSearcher:
 
       * point (MATCH/ANY) predicates delegate to ``brute_force_hybrid``;
       * ONE_OF / BETWEEN predicates run the same scan with exact
-        set-membership / interval-containment filtering.
-    The code-scan path (``_adc_two_stage``) waits for the quantized slice.
+        set-membership / interval-containment filtering;
+      * PQ codes with ``quant != "none"``: ``_adc_two_stage`` scans every
+        code, then reranks the pool exactly. ``n_dist_evals`` counts the
+        rerank, ``n_code_evals`` the N code scores.
     """
 
     name = "brute"
@@ -162,13 +172,10 @@ class BruteForceSearcher:
     def search(self, engine, queries, params, plan, entry_ids=None):
         idx = engine.index
         dev = engine.device
-        if plan.quant_mode != "none":
-            raise NotImplementedError(
-                "the brute code scan (_adc_two_stage) arrives with the "
-                "quantized slice of the port"
-            )
         qv = to_tensor(queries.vectors, torch.float32, dev)
         qa = to_tensor(queries.attrs, torch.int32, dev)
+        if is_pq_mode(plan.quant_mode) and idx.quant is not None:
+            return self._adc_two_stage(engine, queries, qv, qa, params)
         if not (queries.has_one_of or queries.has_intervals):
             return baselines_mod.brute_force_hybrid(
                 idx.features, idx.attrs, qv, qa, params.k, mask=_mask(engine, queries)
@@ -180,14 +187,39 @@ class BruteForceSearcher:
             sv2, _ok_matrix(engine, queries), params.k, full_evals=idx.features.shape[0]
         )
 
+    def _adc_two_stage(self, engine, queries, qv, qa, params):
+        """ADC code scan → hard filter → exact rerank of the pool head.
+        ``rerank_size`` bounds the exact stage as in the traversal path
+        (0 → the whole pool)."""
+        idx = engine.index
+        store = idx.quant
+        scores = adc_scan(
+            store.lut(qv), store.codes, qa, idx.attrs, mode="l2", packed=store.packed,
+        )  # (B, N) approximate squared L2 from codes only
+        n = scores.shape[1]
+        pool = min(params.effective_pool, n)
+        pool = min(max(params.rerank_size or pool, params.k), pool)
+        code_sq, cand = smallest_k(scores.masked_fill(~_ok_matrix(engine, queries), INF), pool)
+        cand = cand.to(torch.int32)
+        rd = gather_auto(qv, qa, idx.features, idx.attrs, cand, mode="l2")
+        rd = rd.masked_fill(code_sq >= INF / 2, INF)
+        res = _filtered_topk(rd, torch.ones_like(rd, dtype=torch.bool), params.k,
+                             full_evals=pool, ids=cand)
+        return res._replace(n_code_evals=torch.full(
+            (qv.shape[0],), n, dtype=torch.int32, device=qv.device))
+
 
 def _ok_matrix(engine: "Engine", queries: QueryBatch) -> Tensor:
-    """(B, N) admissibility of ONE_OF / BETWEEN batches on the device:
-    containment in [lo, hi] (equality on point dimensions) and exact
-    ONE_OF set membership, the semantics of ``QueryBatch.admissible``."""
+    """(B, N) admissibility on the device: equality for point batches,
+    containment in [lo, hi] (equality on point dimensions) and exact ONE_OF
+    set membership otherwise, the semantics of ``QueryBatch.admissible``."""
     dev = engine.device
-    xa = engine.index.attrs[None, :, :]
     mask = _mask(engine, queries)
+    if not (queries.has_one_of or queries.has_intervals):
+        return baselines_mod._equality_ok(
+            to_tensor(queries.attrs, torch.int32, dev), engine.index.attrs, mask
+        )
+    xa = engine.index.attrs[None, :, :]
     lo, hi = (to_tensor(t, torch.int32, dev)[:, None, :] for t in queries._bounds())
     okl = (xa >= lo) & (xa <= hi)
     if queries.has_one_of:
@@ -286,14 +318,14 @@ class Engine:
         features,
         attrs,
         help_cfg: HelpConfig = HelpConfig(),
-        quant_cfg=None,
+        quant_cfg: Optional[QuantConfig] = None,
         build_graph: bool = True,
         device=None,
         **kw,
     ) -> "Engine":
-        """Build a single-host engine on ``device`` (None → the CUDA card).
-        ``build_graph=False`` skips the HELP construction for scan-only
-        corpora."""
+        """Build a single-host engine on ``device`` (None → the CUDA card),
+        with ``quant_cfg``'s codec when given. ``build_graph=False`` skips
+        the HELP construction for scan-only corpora."""
         return cls(StableIndex.build(
             features, attrs, help_cfg=help_cfg, quant_cfg=quant_cfg,
             build_graph=build_graph, device=device, **kw,
@@ -307,10 +339,12 @@ class Engine:
         graph,
         metric_cfg: MetricConfig,
         stats: Optional[DatasetStats] = None,
+        quant: Optional[QuantizedVectors] = None,
         help_cfg: HelpConfig = HelpConfig(),
         device=None,
     ) -> "Engine":
-        """Wrap prebuilt arrays on ``device`` (None → the CUDA card)."""
+        """Wrap prebuilt arrays (and a codec store on the same device) on
+        ``device`` (None → the CUDA card)."""
         dev = resolve_device(device)
         feats_np = features.cpu().numpy() if isinstance(features, Tensor) else np.asarray(features)
         attrs_np = attrs.cpu().numpy() if isinstance(attrs, Tensor) else np.asarray(attrs)
@@ -320,7 +354,7 @@ class Engine:
             features=to_tensor(feats_np, torch.float32, dev),
             attrs=to_tensor(attrs_np, torch.int32, dev),
             graph=to_tensor(graph, torch.int32, dev),
-            metric_cfg=metric_cfg, help_cfg=help_cfg, stats=stats,
+            metric_cfg=metric_cfg, help_cfg=help_cfg, stats=stats, quant=quant,
         ))
 
     # -- introspection -------------------------------------------------------
@@ -337,14 +371,33 @@ class Engine:
     def has_graph(self) -> bool:
         return int(self.index.graph.shape[1]) > 0
 
+    @property
+    def quant_mode(self) -> str:
+        """Codec attached to the index ("none" when unquantized)."""
+        return self.index.quant.cfg.mode if self.index.quant is not None else "none"
+
     # -- planning ------------------------------------------------------------
 
     def _resolve_quant(self, params: SearchParams, backend: str) -> str:
-        if params.quant in ("auto", "none"):
+        """The codec a search runs with: ``auto`` takes the index's, except
+        that brute plus sq8 scans exactly (there is no sq8 scan kernel);
+        ``none`` forces a full-precision search."""
+        stored = self.quant_mode
+        if params.quant == "auto":
+            if backend == "brute" and stored == "sq8":
+                return "none"
+            return stored
+        if params.quant == "sq8" and backend == "brute":
+            raise ValueError(
+                "the brute-force backend has no sq8 scan path; use quant='auto' or 'none'"
+            )
+        if params.quant == "none":
             return "none"
-        raise ValueError(
-            f"params.quant={params.quant!r} but the index holds 'none' codes"
-        )
+        if params.quant != stored:
+            raise ValueError(
+                f"params.quant={params.quant!r} but the index holds {stored!r} codes"
+            )
+        return params.quant
 
     def plan(self, queries: QueryBatch, params: SearchParams) -> Plan:
         """Resolve (backend, quant_mode, routing_cfg, predicted costs) for

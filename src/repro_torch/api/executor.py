@@ -143,15 +143,21 @@ class Executor:
         exec_params, exec_plan = params, plan
         if do_filter:
             # widen the traversal cut from k to the whole exactly-scored
-            # pool: the covering-interval penalty admits in-hull non-members
+            # head: the covering-interval penalty admits in-hull non-members
             # with zero gap, so the membership filter below needs surplus
-            # candidates to backfill the slots they displace
+            # candidates to backfill the slots they displace. Exact search
+            # scores the whole pool exactly; a quantized one its rerank head.
             cfg = plan.routing_cfg
-            wide_k = cfg.pool_size
+            repl = {}
+            if plan.quant_mode == "none":
+                wide_k = cfg.pool_size
+                repl["rerank_size"] = 0  # unused on the exact path
+            else:
+                wide_k = cfg.effective_rerank
             if wide_k > params.k:
                 exec_params = dataclasses.replace(params, k=wide_k)
                 exec_plan = dataclasses.replace(
-                    plan, routing_cfg=dataclasses.replace(cfg, k=wide_k, rerank_size=0)
+                    plan, routing_cfg=dataclasses.replace(cfg, k=wide_k, **repl)
                 )
 
         entry_ids = None

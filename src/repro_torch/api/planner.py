@@ -4,7 +4,9 @@ The planner turns one (QueryBatch, SearchParams) pair into a ``Plan``.
 Backend choice is driven by a ``CostModel`` measured on the engine's own
 index rather than a fixed size threshold:
 
-  brute cost ≈ N full-precision scorings (at the measured scan discount);
+  brute cost ≈ N full-precision scorings (at the measured scan discount),
+               or with PQ codes N code scorings at a fractional cost plus a
+               pool-sized exact rerank (the ``adc_scan`` path);
   graph cost ≈ measured candidate scorings per pool slot × pool size,
                grown logarithmically with corpus size, widened for wide
                (interval) predicates, plus a fixed dispatch overhead
@@ -17,9 +19,9 @@ is loaded (``cost_model_from_table``). The probe times the card: its
 decision near the crossover is not deterministic, so callers that need a
 frozen decision pin ``SearchParams(backend=...)`` or inject a model.
 
-The codec terms of ``CostModel`` are kept field for field so a saved model
-round-trips; only exact indexes are ported, so they price nothing yet. The
-sharded and partitioned rules raise ``NotImplementedError``.
+On a quantized index the probe routes over codes, as serving will, and
+fits on the code scorings. The sharded and partitioned rules raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from repro_torch.core import routing as routing_mod
 from repro_torch.core.auto import MetricConfig, brute_fused_sqdist
 from repro_torch.core.graph_ops import smallest_k
 from repro_torch.core.routing import RoutingConfig
+from repro_torch.quant.store import is_packed_mode, is_pq_mode
 
 if TYPE_CHECKING:  # engine imports planner; never the reverse at runtime
     from repro_torch.api.engine import Engine, SearchParams
@@ -60,9 +63,6 @@ PROBE_POOLS = (16, 32)
 #: Corpus-prefix fractions of the brute-scan timing sweep.
 PROBE_N_FRACTIONS = (0.25, 0.5, 1.0)
 
-#: every codec that scores through ADC tables over PQ codes.
-PQ_MODES = ("pq", "pq4", "opq-pq", "opq-pq4")
-
 _CALIBRATION_COUNT = [0]
 
 
@@ -71,21 +71,12 @@ def calibration_count() -> int:
     return _CALIBRATION_COUNT[0]
 
 
-def is_pq_mode(mode: str) -> bool:
-    return mode in PQ_MODES
-
-
-def is_packed_mode(mode: str) -> bool:
-    """4-bit codes stored two per byte."""
-    return mode in ("pq4", "opq-pq4")
-
-
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """Resolved execution plan, inspectable via ``Engine.plan``."""
 
     backend: str  # graph | brute
-    quant_mode: str  # "none" on every ported path
+    quant_mode: str  # none | sq8 | pq-family (resolved from params × index)
     routing_cfg: Optional[RoutingConfig]  # None for the brute backend
     reason: str  # human-readable planner justification
     cost_brute: Optional[float] = None  # predicted brute cost (fp-eval units)
@@ -186,8 +177,9 @@ def calibrate(index, seed: int = 0, time_probe: bool = True) -> CostModel:
 
     PROBE_BATCH database rows (spread over the corpus) serve as queries
     with their own attributes as targets; small capped traversals at each
-    ``PROBE_POOLS`` point fit ``unit_evals`` and ``pool_intercept``. With
-    ``time_probe`` it also times the brute scan at the
+    ``PROBE_POOLS`` point fit ``unit_evals`` and ``pool_intercept``. On a
+    quantized index the probes route over codes and the fit counts the
+    code scorings. With ``time_probe`` it also times the brute scan at the
     ``PROBE_N_FRACTIONS`` prefixes and the traversal (best of two runs,
     ending in a device synchronize): the least-squares line through the
     scan timings gives ``brute_eval_cost`` (scan vs traversal wall cost per
@@ -213,12 +205,20 @@ def calibrate(index, seed: int = 0, time_probe: bool = True) -> CostModel:
     def run_traversal(cfg: RoutingConfig):
         return routing_mod.search(
             index.features, index.attrs, index.graph, qv, qa,
-            index.metric_cfg, cfg, seed=seed,
+            index.metric_cfg, cfg, seed=seed, quant=index.quant,
         )
 
+    # unit_evals/pool_intercept price traversal scorings only: on a
+    # quantized index the probes' fp evals are the exact rerank, which
+    # graph_cost prices as its own term
     per_query: dict[int, float] = {}
+    wall_per_query: dict[int, float] = {}
     for pool in pools:
-        per_query[pool] = float(run_traversal(traversal_cfg(pool)).mean_dist_evals)
+        res = run_traversal(traversal_cfg(pool))
+        per_query[pool] = float(
+            res.mean_dist_evals if index.quant is None else res.mean_code_evals
+        )
+        wall_per_query[pool] = float(res.mean_dist_evals + res.mean_code_evals)
     p_hi = pools[-1]
     if len(pools) >= 2:
         p_lo = pools[0]
@@ -258,7 +258,7 @@ def calibrate(index, seed: int = 0, time_probe: bool = True) -> CostModel:
             _sync(dev)
             t_scan[ni] = best_of_two(lambda ni=ni: run_brute(ni))
         t_graph = best_of_two(lambda: run_traversal(cfg_hi))
-        per_graph_eval = t_graph / max(per_query[p_hi] * b, 1.0)
+        per_graph_eval = t_graph / max(wall_per_query[p_hi] * b, 1.0)
         if len(sizes) >= 2:
             s, t0_fit = np.polyfit(sizes, [t_scan[ni] for ni in sizes], 1)
             per_brute_eval = max(float(s), 0.0) / b
@@ -332,13 +332,16 @@ def make_plan(engine: "Engine", queries: QueryBatch, params: "SearchParams") -> 
         cm = engine.cost_model
         n = engine.n_items
         pool = min(params.effective_pool, n)
-        cost_brute = cm.brute_cost(n=n, pool=pool)
+        # price the codec that will run: quant="none" forces full precision
+        # on a quantized index, and the brute oracle scans codes for pq only
+        q = "none" if params.quant == "none" else engine.quant_mode
+        cost_brute = cm.brute_cost(n=n, pool=pool, quant_mode=q if is_pq_mode(q) else "none")
         # the width surcharge models the executor's cut-widening for the
         # exact-membership backfill: ONE_OF always, intervals when enforced
         widens = queries.has_one_of or (params.enforce_equality and queries.has_intervals)
         cost_graph = cm.graph_cost(
             n=n, pool=pool, batch=queries.batch_size,
-            width=predicate_width(queries) if widens else 0.0,
+            width=predicate_width(queries) if widens else 0.0, quant_mode=q,
             rerank=params.rerank_size,
         )
         backend = "brute" if cost_brute <= cost_graph else "graph"

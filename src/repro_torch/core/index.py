@@ -1,10 +1,11 @@
 """Public STABLE index API of the port.
 
-``StableIndex`` bundles the AUTO-calibrated metric, the HELP graph and the
-dynamic router behind build/search/save/load. ``save``/``load`` use the
-reference's ``stable-single-v1`` layout (``features.npy``, ``attrs.npy``,
-``graph.npy``, ``meta.json``), so each package loads the other's
-directory. Only exact (uncompressed) indexes are ported.
+``StableIndex`` bundles the AUTO-calibrated metric, the HELP graph, an
+optional codec store and the dynamic router behind build/search/save/load.
+``save``/``load`` use the reference's ``stable-single-v1`` layout
+(``features.npy``, ``attrs.npy``, ``graph.npy``, ``meta.json`` and, for a
+quantized index, the ``quant_*.npy`` files and the meta's ``quant`` block),
+so each package loads the other's directory.
 """
 from __future__ import annotations
 
@@ -22,21 +23,11 @@ from repro_torch.core import resolve_device, routing as routing_mod, to_tensor
 from repro_torch.core.auto import DatasetStats, MetricConfig
 from repro_torch.core.help_graph import BuildReport, HelpConfig
 from repro_torch.core.routing import RoutingConfig, SearchResult
+from repro_torch.quant import QuantConfig, QuantizedVectors
 
 Tensor = torch.Tensor
 
 FORMAT = "stable-single-v1"
-
-
-def _no_codec(quant_cfg) -> None:
-    """Reject a codec: ``quant_cfg`` is None, "none" or a config whose
-    ``mode`` is "none"."""
-    mode = getattr(quant_cfg, "mode", quant_cfg)
-    if quant_cfg is not None and mode != "none":
-        raise NotImplementedError(
-            f"quant mode {mode!r}: compressed indexes arrive with the quantized "
-            "slice of the port; build an exact index (quant_cfg=None)"
-        )
 
 
 @dataclasses.dataclass
@@ -48,6 +39,7 @@ class StableIndex:
     help_cfg: HelpConfig
     stats: DatasetStats
     report: Optional[BuildReport] = None
+    quant: Optional[QuantizedVectors] = None  # codes + codec state (or None)
 
     @property
     def device(self) -> torch.device:
@@ -65,15 +57,17 @@ class StableIndex:
         alpha: Optional[float] = None,
         nhq_weight: float = 1.0,
         stats_seed: int = 0,
-        quant_cfg=None,
+        quant_cfg: Optional[QuantConfig] = None,
         build_graph: bool = True,
         device=None,
     ) -> "StableIndex":
         """Calibrate α on the host (numpy, bit-equal to the reference), then
-        build the HELP graph on ``device`` (None → the CUDA card).
+        build the HELP graph on ``device`` (None → the CUDA card), then
+        train ``quant_cfg``'s codec there (None or mode 'none': no codec).
         ``build_graph=False`` stores an empty (N, 0) adjacency for corpora
         that will only ever be scanned."""
-        _no_codec(quant_cfg)
+        if quant_cfg is not None and not isinstance(quant_cfg, QuantConfig):
+            raise TypeError(f"quant_cfg must be a QuantConfig or None, got {quant_cfg!r}")
         dev = resolve_device(device)
         feats_np = np.asarray(features, np.float32)
         attrs_np = np.asarray(attrs, np.int32)
@@ -93,6 +87,7 @@ class StableIndex:
         return cls(
             features=feats, attrs=attrs_t, graph=graph, metric_cfg=metric_cfg,
             help_cfg=help_cfg, stats=stats, report=report,
+            quant=QuantizedVectors.build(feats, quant_cfg or QuantConfig()),
         )
 
     # -- search ---------------------------------------------------------------
@@ -107,13 +102,16 @@ class StableIndex:
         seed: int = 0,
     ) -> SearchResult:
         """Legacy keyword entry point (prefer ``repro_torch.api.Engine``);
-        runs on the index's device."""
+        runs on the index's device. A quantized index routes over its codes
+        and reranks exactly (``quant_mode`` defaults from ``self.quant``)."""
         cfg = routing_cfg or RoutingConfig(k=k, pool_size=max(4 * k, 32))
         if cfg.k != k:
             cfg = dataclasses.replace(cfg, k=k)
+        if self.quant is not None and cfg.quant_mode == "none":
+            cfg = dataclasses.replace(cfg, quant_mode=self.quant.cfg.mode)
         return routing_mod.search(
             self.features, self.attrs, self.graph, qv, qa, self.metric_cfg, cfg,
-            mask=mask, seed=seed,
+            mask=mask, seed=seed, quant=self.quant,
         )
 
     # -- persistence ----------------------------------------------------------
@@ -130,7 +128,7 @@ class StableIndex:
             "metric_cfg": dataclasses.asdict(self.metric_cfg),
             "help_cfg": dataclasses.asdict(self.help_cfg),
             "stats": dataclasses.asdict(self.stats),
-            "quant": None,
+            "quant": self.quant.save(path) if self.quant is not None else None,
             **(extra_meta or {}),
         }
         tmp = os.path.join(path, "meta.json.tmp")
@@ -147,19 +145,18 @@ class StableIndex:
             meta = json.load(f)
         if meta.get("format", FORMAT) != FORMAT:
             raise ValueError(f"{path}: format {meta['format']!r} is not {FORMAT!r}")
-        if meta.get("quant") is not None:
-            raise NotImplementedError(
-                f"{path} holds a compressed index; compressed indexes arrive "
-                "with the quantized slice of the port"
-            )
         mode = "r" if mmap else None
 
         def arr(name):
             return np.load(os.path.join(path, name), mmap_mode=mode)
 
+        quant_meta = meta.get("quant")
+        quant = None
+        if quant_meta is not None:
+            quant = QuantizedVectors.load(path, quant_meta, mmap=mmap, device=device)
         return index_from_numpy(
             arr("features.npy"), arr("attrs.npy"), arr("graph.npy"),
-            meta["metric_cfg"], meta["help_cfg"], meta["stats"], device,
+            meta["metric_cfg"], meta["help_cfg"], meta["stats"], device, quant=quant,
         )
 
 
@@ -171,12 +168,17 @@ def index_from_numpy(
     help_cfg: dict,
     stats: dict,
     device=None,
+    quant: Optional[QuantizedVectors] = None,
 ) -> StableIndex:
     """A port ``StableIndex`` from a reference index's arrays (as numpy)
     and its dataclasses (as dicts, e.g. ``dataclasses.asdict``), placed on
     ``device`` (None → the CUDA card). Both packages then score and
-    traverse the same graph."""
+    traverse the same graph. ``quant`` is a codec store on the same device
+    (``repro_torch.quant.quant_from_numpy`` builds one from a reference
+    store's arrays)."""
     dev = resolve_device(device)
+    if quant is not None and quant.device.type != dev.type:
+        raise ValueError(f"quant store is on {quant.device}, the index on {dev}")
     return StableIndex(
         features=to_tensor(features, torch.float32, dev),
         attrs=to_tensor(attrs, torch.int32, dev),
@@ -184,4 +186,5 @@ def index_from_numpy(
         metric_cfg=MetricConfig(**metric_cfg),
         help_cfg=HelpConfig(**help_cfg),
         stats=DatasetStats(**stats),
+        quant=quant,
     )

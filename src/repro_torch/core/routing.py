@@ -15,8 +15,14 @@ Where the reference runs ``lax.while_loop``, this module runs a Python
 loop: the stop tests (``active.any()`` in the coarse stage, "any pool entry
 unchecked" in the refine stage) each cost one device-to-host read per hop.
 
-Only exact (``quant_mode="none"``) traversal is ported; a codec raises
-``NotImplementedError`` until the quantized slice lands.
+Quantized traversal (``quant_mode`` ∈ sq8, pq, pq4, opq-pq, opq-pq4)
+scores candidates from codes only: sq8 codes decode after the gather,
+PQ-family codes sum the per-query ADC tables (4-bit codes unpack after the
+gather; the OPQ rotation lives in the tables). Both stay plain torch on the
+card, as they are plain jnp in the reference. The pool head
+(``rerank_size``) is then re-scored exactly through ``gather_auto``.
+``n_dist_evals`` counts only the exact evaluations, ``n_code_evals`` the
+code ones.
 """
 from __future__ import annotations
 
@@ -32,11 +38,11 @@ from repro_torch.core import resolve_device, to_tensor
 from repro_torch.core.auto import MetricConfig
 from repro_torch.core.graph_ops import INF, INVALID
 from repro_torch.kernels.gather_auto.ops import gather_auto
+from repro_torch.quant import pq as pq_mod
+from repro_torch.quant import sq as sq_mod
+from repro_torch.quant.store import QUANT_MODES, is_packed_mode
 
 Tensor = torch.Tensor
-
-#: every traversal codec name the reference knows (``repro.quant.store``).
-QUANT_MODES = ("none", "sq8", "pq", "pq4", "opq-pq", "opq-pq4")
 
 #: Incremented once per compiled search plan (``api.executor``): the port's
 #: counterpart of the reference's jit trace count. Tests assert that
@@ -51,13 +57,6 @@ def trace_count() -> int:
 
 def note_compiled_plan() -> None:
     _TRACE_COUNT[0] += 1
-
-
-def _quant_unported(mode: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"quant_mode={mode!r}: quantized traversal arrives with the quantized "
-        "slice of the port; only exact (quant_mode='none') search runs here"
-    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,22 +125,34 @@ def _score_candidates(
     qa: Tensor,
     metric_cfg: MetricConfig,
     mask: Optional[Tensor],
+    quant: tuple = (),
     quant_mode: str = "none",
 ) -> Tensor:
     """(B, C) squared fused distances of each query to its own candidates;
-    INF on INVALID slots. ``qa`` is (B, L) points or (B, L, 2) intervals."""
-    if quant_mode != "none":
-        raise _quant_unported(quant_mode)
-    if metric_cfg.mode in ("auto", "l2"):
+    INF on INVALID slots. ``qa`` is (B, L) points or (B, L, 2) intervals.
+    ``quant`` is the store's ``routing_operand``: (codes, scale, zero) for
+    sq8, (codes, lut) for the PQ family. Attributes are never quantized."""
+    if quant_mode == "none" and metric_cfg.mode in ("auto", "l2"):
         return gather_auto(
             qv, qa, db_v, db_a, cand, alpha=metric_cfg.alpha,
             mode=metric_cfg.mode, mask=mask,
         )
-    sv2 = gather_auto(qv, qa, db_v, db_a, cand, mode="l2")
     m = mask[:, None, :] if mask is not None else None
-    d = auto_mod.fused_sqdist_from_sv2(
-        sv2, qa[:, None], gops.gather_rows(db_a, cand), metric_cfg, m
-    )
+    ca = gops.gather_rows(db_a, cand)
+    if quant_mode == "none":
+        sv2 = gather_auto(qv, qa, db_v, db_a, cand, mode="l2")
+    elif quant_mode == "sq8":
+        codes, scale, zero = quant
+        cv = sq_mod.sq8_decode(gops.gather_rows(codes, cand), sq_mod.SQParams(scale, zero))
+        sv2 = auto_mod.feature_sqdist(qv[:, None, :], cv)
+    else:
+        # ADC: Σ_s lut[b, s, code] stands in for the f32 feature term
+        codes, lut = quant
+        cc = gops.gather_rows(codes, cand)  # (B, C, S), or (B, C, ⌈S/2⌉) packed
+        if is_packed_mode(quant_mode):
+            cc = pq_mod.unpack_nibbles(cc, lut.shape[1])
+        sv2 = torch.clamp_min(pq_mod.adc_gathered_sqdist(lut, cc), 0.0)
+    d = auto_mod.fused_sqdist_from_sv2(sv2, qa[:, None], ca, metric_cfg, m)
     return d.masked_fill(cand < 0, INF)
 
 
@@ -169,6 +180,7 @@ def _expand(
     fanout: int,  # neighbours taken per expanded entry (Γ/2 or Γ)
     watch: int,  # improvement watched over R[:watch]
     use_visited: bool,
+    quant: tuple = (),
     quant_mode: str = "none",
     force_active: bool = False,  # expand regardless of the dynamic-exit flag
 ) -> _State:
@@ -195,7 +207,7 @@ def _expand(
         cand = cand.masked_fill(seen, INVALID)
 
     # --- score ----------------------------------------------------------------
-    cd = _score_candidates(db_v, db_a, cand, qv, qa, metric_cfg, mask, quant_mode)
+    cd = _score_candidates(db_v, db_a, cand, qv, qa, metric_cfg, mask, quant, quant_mode)
     n_new_evals = (cand >= 0).sum(1, dtype=torch.int32)
 
     # --- bookkeeping: expanded entries become checked; candidates visited --
@@ -241,6 +253,7 @@ def init_state(
     cfg: RoutingConfig,
     n_nodes: int,
     mask: Optional[Tensor] = None,
+    quant: tuple = (),
 ) -> _State:
     """Stage 1 (Alg. 3 init): score the random-K seed pool, sorted
     ascending, with the visited map primed on the seeds."""
@@ -248,7 +261,7 @@ def init_state(
     pool = cfg.pool_size
     dev = qv.device
     d0 = _score_candidates(
-        db_v, db_a, entry_ids, qv, qa, metric_cfg, mask, cfg.quant_mode
+        db_v, db_a, entry_ids, qv, qa, metric_cfg, mask, quant, cfg.quant_mode
     )
     r_ids, r_d, _ = gops.merge_pools(
         torch.full((b, pool), INVALID, dtype=torch.int32, device=dev),
@@ -280,6 +293,7 @@ def coarse_stage(
     metric_cfg: MetricConfig,
     cfg: RoutingConfig,
     mask: Optional[Tensor] = None,
+    quant: tuple = (),
 ) -> _State:
     """Stage 2, Dynamic Coarse Routing: pioneer set = R[:P], half-fanout
     expansion until no iteration improves P (or, with ``cfg.coarse_fixed``,
@@ -291,7 +305,7 @@ def coarse_stage(
         state = _expand(
             state, db_v, db_a, graph, qv, qa, metric_cfg, mask,
             scope=cfg.pioneer_size, fanout=half, watch=cfg.pioneer_size,
-            use_visited=cfg.use_visited, quant_mode=cfg.quant_mode,
+            use_visited=cfg.use_visited, quant=quant, quant_mode=cfg.quant_mode,
             force_active=cfg.coarse_fixed,
         )
     return state
@@ -307,6 +321,7 @@ def refine_stage(
     metric_cfg: MetricConfig,
     cfg: RoutingConfig,
     mask: Optional[Tensor] = None,
+    quant: tuple = (),
 ) -> _State:
     """Stage 3, Greedy Refinement Routing: full pool, full fanout, until
     the pool is fully checked."""
@@ -317,7 +332,7 @@ def refine_stage(
         state = _expand(
             state, db_v, db_a, graph, qv, qa, metric_cfg, mask,
             scope=cfg.pool_size, fanout=graph.shape[1], watch=cfg.pool_size,
-            use_visited=cfg.use_visited, quant_mode=cfg.quant_mode,
+            use_visited=cfg.use_visited, quant=quant, quant_mode=cfg.quant_mode,
         )
     return state
 
@@ -333,11 +348,13 @@ def traverse_pool(
     cfg: RoutingConfig,
     n_nodes: int,
     mask: Optional[Tensor] = None,
+    quant: tuple = (),
 ) -> _State:
-    """Stages 1–3: seed + coarse + refine, returning the final pool state."""
-    state = init_state(db_v, db_a, qv, qa, entry_ids, metric_cfg, cfg, n_nodes, mask)
-    state = coarse_stage(state, db_v, db_a, graph, qv, qa, metric_cfg, cfg, mask)
-    return refine_stage(state, db_v, db_a, graph, qv, qa, metric_cfg, cfg, mask)
+    """Stages 1–3: seed + coarse + refine, returning the final pool state
+    (sorted ascending by the traversal codec's distance)."""
+    state = init_state(db_v, db_a, qv, qa, entry_ids, metric_cfg, cfg, n_nodes, mask, quant)
+    state = coarse_stage(state, db_v, db_a, graph, qv, qa, metric_cfg, cfg, mask, quant)
+    return refine_stage(state, db_v, db_a, graph, qv, qa, metric_cfg, cfg, mask, quant)
 
 
 def score_exact(
@@ -375,27 +392,41 @@ def enforce_filter(
 
 def emit_topk(
     state: _State,
+    db_v: Tensor,
     db_a: Tensor,
+    qv: Tensor,
     qa: Tensor,
+    metric_cfg: MetricConfig,
     cfg: RoutingConfig,
     mask: Optional[Tensor] = None,
 ) -> SearchResult:
-    """Stage 4: the exact pool head, optionally hard-filtered."""
-    if cfg.quant_mode != "none":
-        raise _quant_unported(cfg.quant_mode)
+    """Stage 4: exact traversal emits the pool head; a quantized one
+    re-scores the first ``rerank_size`` pool entries exactly (the only
+    full-precision evaluations of its search) and emits their top k.
+    Either is optionally hard-filtered."""
     b = state.r_ids.shape[0]
-    out_ids = state.r_ids[:, : cfg.k]
-    out_sq = state.r_d[:, : cfg.k]
+    dev = state.r_ids.device
+    if cfg.quant_mode == "none":
+        out_ids = state.r_ids[:, : cfg.k]
+        out_sq = state.r_d[:, : cfg.k]
+        n_dist_evals = state.evals
+        n_code_evals = torch.zeros((b,), dtype=torch.int32, device=dev)
+    else:
+        r_ids = state.r_ids[:, : cfg.effective_rerank]
+        rd = score_exact(db_v, db_a, r_ids, qv, qa, metric_cfg, mask)
+        out_sq, take = gops.smallest_k(rd, cfg.k)
+        out_ids = torch.where(out_sq < INF / 2, r_ids.gather(1, take), INVALID)
+        n_dist_evals = (r_ids >= 0).sum(1, dtype=torch.int32)
+        n_code_evals = state.evals
     if cfg.enforce_equality:
         out_ids, out_sq = enforce_filter(out_ids, out_sq, db_a, qa, mask)
-    dev = out_ids.device
     return SearchResult(
         ids=out_ids,
         dists=torch.sqrt(torch.clamp_min(out_sq, 0.0)),
         sqdists=out_sq,
-        n_dist_evals=state.evals,
+        n_dist_evals=n_dist_evals,
         n_hops=torch.tensor(state.hops, dtype=torch.int32, device=dev),
-        n_code_evals=torch.zeros((b,), dtype=torch.int32, device=dev),
+        n_code_evals=n_code_evals,
     )
 
 
@@ -424,13 +455,13 @@ def search(
     mask=None,
     entry_ids: Optional[Tensor] = None,
     seed: int = 0,
-    quant=None,
+    quant=None,  # Optional[repro_torch.quant.QuantizedVectors]
 ) -> SearchResult:
     """Batched hybrid ANNS over a HELP index, on the device that holds the
     index. ``qa`` carries (B, L) points or (B, L, 2) [lo, hi] intervals;
-    host arrays are moved to that device."""
-    if quant is not None or cfg.quant_mode != "none":
-        raise _quant_unported(cfg.quant_mode if quant is None else "codec store")
+    host arrays are moved to that device. A ``QuantizedVectors`` store runs
+    the traversal over its codes with an exact rerank (``quant_mode`` comes
+    from the store when ``cfg`` leaves it at 'none')."""
     dev = db_v.device
     qv = to_tensor(qv, torch.float32, dev)
     qa = to_tensor(qa, torch.int32, dev)
@@ -438,10 +469,21 @@ def search(
     n = db_v.shape[0]
     if entry_ids is None:
         entry_ids = make_entry_ids(n, qv.shape[0], cfg.pool_size, seed, device=dev)
+    operand: tuple = ()
+    if quant is not None:
+        if cfg.quant_mode == "none":
+            cfg = dataclasses.replace(cfg, quant_mode=quant.cfg.mode)
+        elif cfg.quant_mode != quant.cfg.mode:
+            raise ValueError(
+                f"cfg.quant_mode={cfg.quant_mode!r} != store mode {quant.cfg.mode!r}"
+            )
+        operand = quant.routing_operand(qv)
+    elif cfg.quant_mode != "none":
+        raise ValueError(f"quant_mode={cfg.quant_mode!r} needs a quant store")
     state = traverse_pool(
-        db_v, db_a, graph, qv, qa, entry_ids, metric_cfg, cfg, n, mask
+        db_v, db_a, graph, qv, qa, entry_ids, metric_cfg, cfg, n, mask, operand
     )
-    return emit_topk(state, db_a, qa, cfg, mask)
+    return emit_topk(state, db_v, db_a, qv, qa, metric_cfg, cfg, mask)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,9 @@ in ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``), named by a hash of the source and the flags, so an
 unchanged kernel is never rebuilt and a changed one never loads stale.
 ``build_all`` starts one ``nvcc`` per source at once. A failed build
-raises: nothing falls back to the plain versions.
+raises: nothing falls back to the plain versions. A launcher lives in
+``<name>.cu`` unless ``SOURCES`` names another file (``adc_scan4`` shares
+``adc_scan.cu`` with ``adc_scan``: one kernel template, two launchers).
 """
 from __future__ import annotations
 
@@ -33,7 +35,12 @@ SIGNATURES = {
     "gather_auto": (P, P, P, P, P, P, P, P, I, I, I, I, I, F, I, P),
     # qv, xv, qlo, qhi, mask, xa, out, B, N, M, L, inv_alpha, mode, stream
     "fused_auto": (P, P, P, P, P, P, P, I, I, I, I, F, I, P),
+    # lut, codes, qlo, qhi, mask, xa, out, B, N, S, K, L, inv_alpha, mode, stream
+    "adc_scan": (P, P, P, P, P, P, P, I, I, I, I, I, F, I, P),
+    "adc_scan4": (P, P, P, P, P, P, P, I, I, I, I, I, F, I, P),
 }
+#: the source file stem of each launcher that does not live in <name>.cu.
+SOURCES = {"adc_scan4": "adc_scan"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -55,22 +62,27 @@ def nvcc_path() -> str:
     return found
 
 
-def _target(name: str, nvcc: str) -> Path:
-    src = CSRC / f"{name}.cu"
+def source(name: str) -> str:
+    """Stem of the ``csrc/`` file that holds ``<name>_launch``."""
+    return SOURCES.get(name, name)
+
+
+def _target(src_name: str, nvcc: str) -> Path:
+    src = CSRC / f"{src_name}.cu"
     h = hashlib.sha256(src.read_bytes())
     h.update(" ".join((nvcc,) + NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{src_name}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str, nvcc: str):
+def _start(src_name: str, nvcc: str):
     """Start ``nvcc`` for one source unless its library is built already;
     returns (target, process or None)."""
-    out = _target(name, nvcc)
+    out = _target(src_name, nvcc)
     if out.exists():
         return out, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{src_name}.cu")]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
@@ -108,12 +120,12 @@ def build_all(names=tuple(SIGNATURES)) -> None:
         if not todo:
             return
         nvcc = nvcc_path()
-        jobs = {n: _start(n, nvcc) for n in todo}
-        errors = [_finish(n, out, job) for n, (out, job) in jobs.items()]
+        jobs = {src: _start(src, nvcc) for src in dict.fromkeys(map(source, todo))}
+        errors = [_finish(src, out, job) for src, (out, job) in jobs.items()]
         if any(errors):
             raise RuntimeError("\n".join(e for e in errors if e))
-        for n, (out, _) in jobs.items():
-            _libs[n] = _bind(n, out)
+        for n in todo:
+            _libs[n] = _bind(n, jobs[source(n)][0])
 
 
 def launcher(name: str):

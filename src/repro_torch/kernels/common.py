@@ -43,17 +43,24 @@ def split_targets(qa: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return qa, qa
 
 
+#: operand dtypes other than int32, by wrapper argument name.
+_DTYPES = {
+    "qv": torch.float32, "xv": torch.float32, "db_v": torch.float32, "lut": torch.float32,
+    "codes": torch.uint8,
+}
+
+
 def check_operands(name: str, **tensors: Optional[torch.Tensor]) -> torch.device:
     """Validate a kernel wrapper's operands: one device, contiguous, and
-    the dtype the kernel reads (float32 rows, int32 ids/attributes/masks).
-    Returns the common device."""
+    the dtype the kernel reads (float32 rows and tables, uint8 codes, int32
+    ids/attributes/masks). Returns the common device."""
     device = None
     for arg, t in tensors.items():
         if t is None:
             continue
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name}: {arg} must be a torch.Tensor")
-        want = torch.float32 if arg in ("qv", "xv", "db_v") else torch.int32
+        want = _DTYPES.get(arg, torch.int32)
         if t.dtype != want:
             raise TypeError(f"{name}: {arg} must be {want}, got {t.dtype}")
         if not t.is_contiguous():

@@ -6,8 +6,9 @@ JAX nor the reference, so it runs on a machine with only PyTorch:
 
 Each kernel is held against its plain version on the same card tensors
 (gather_auto rtol 1e-5; fused_auto |Δ| ≤ (1e-5·(‖q‖² + ‖x‖²) + 1e-6)·pen²
-+ 1e-6·|ref|), must be bitwise batch-invariant, and a search on integer-
-valued data must equal the CPU's plain-version search bit for bit.
++ 1e-6·|ref|; adc_scan and adc_scan4 bit for bit), must be bitwise
+batch-invariant, and a search on integer-valued data must equal the CPU's
+plain-version search bit for bit, exact and quantized.
 """
 import numpy as np
 import pytest
@@ -17,9 +18,15 @@ torch = pytest.importorskip("torch")
 from repro_torch.api import Engine, QueryBatch, SearchParams  # noqa: E402
 from repro_torch.core.index import index_from_numpy  # noqa: E402
 from repro_torch.data.synthetic import make_hybrid_dataset  # noqa: E402
+from repro_torch.kernels.adc_scan.ops import (  # noqa: E402
+    adc_scan4_ref, adc_scan4_scores, adc_scan_ref, adc_scan_scores,
+)
 from repro_torch.kernels.fused_auto.ops import fused_auto, fused_auto_ref  # noqa: E402
 from repro_torch.kernels.gather_auto.ops import gather_auto, gather_auto_ref  # noqa: E402
 from repro_torch.kernels.gather_auto.ref import penalty_sa  # noqa: E402
+from repro_torch.quant import (  # noqa: E402
+    QuantConfig, QuantizedVectors, codec_spec, pack_nibbles, quant_from_numpy, unpack_nibbles,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -105,3 +112,96 @@ def test_search_on_card_equals_cpu_on_integer_data(cuda_dev):
             assert torch.equal(a.sqdists, b.sqdists.cpu())
             assert torch.equal(a.n_dist_evals, b.n_dist_evals.cpu())
             assert int(a.n_hops) == int(b.n_hops)
+
+
+def adc_inputs(b, n, s, k, l, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    lut = torch.rand(b, s, k, generator=g) * 40
+    codes = torch.randint(0, k, (n, s), generator=g).to(torch.uint8)
+    qa = torch.randint(0, 4, (b, l), generator=g, dtype=torch.int32)
+    xa = torch.randint(0, 4, (n, l), generator=g, dtype=torch.int32)
+    other = torch.randint(0, 4, (b, l), generator=g, dtype=torch.int32)
+    iv = torch.stack([torch.minimum(qa, other), torch.maximum(qa, other)], -1)
+    mask = torch.randint(0, 2, (b, l), generator=g, dtype=torch.int32)
+    return [t.to(dev).contiguous() for t in (lut, codes, qa, xa, iv, mask)]
+
+
+@pytest.mark.parametrize("mode", ["auto", "l2"])
+@pytest.mark.parametrize("kind", ["point", "interval", "masked"])
+@pytest.mark.parametrize("s", [64, 7])
+def test_adc_kernels_bitwise_equal_plain_versions(cuda_dev, kind, mode, s):
+    lut, codes, qa, xa, iv, mask = adc_inputs(130, 3001, s, 256, 5, seed=s, dev=cuda_dev)
+    lut4, codes4 = lut[:, :, :16].contiguous(), (codes & 0xF).contiguous()
+    qa_t = iv if kind == "interval" else qa
+    mk = mask if kind == "masked" else None
+    a0, a40 = adc_scan_scores.launches, adc_scan4_scores.launches
+    got = adc_scan_scores(lut, codes, qa_t, xa, ALPHA, mode, mk)
+    packed = pack_nibbles(codes4)
+    got4 = adc_scan4_scores(lut4, packed, qa_t, xa, ALPHA, mode, mk)
+    torch.cuda.synchronize()
+    assert (adc_scan_scores.launches, adc_scan4_scores.launches) == (a0 + 1, a40 + 1)
+    assert torch.equal(got, adc_scan_ref(lut, codes, qa_t, xa, ALPHA, mode, mk))
+    assert torch.equal(got4, adc_scan4_ref(lut4, packed, qa_t, xa, ALPHA, mode, mk))
+    # the packed scanner equals the 8-bit one on the same codes unpacked
+    assert torch.equal(got4, adc_scan_scores(lut4, codes4, qa_t, xa, ALPHA, mode, mk))
+    assert torch.equal(unpack_nibbles(packed, s).to(torch.uint8), codes4)
+
+
+@pytest.mark.parametrize("mode", ["auto", "l2"])
+def test_adc_kernels_batch_invariant_bitwise(cuda_dev, mode):
+    lut, codes, qa, xa, iv, mask = adc_inputs(128, 2000, 64, 256, 5, seed=9, dev=cuda_dev)
+    lut4, packed = lut[:, :, :16].contiguous(), pack_nibbles(codes & 0xF)
+    full = adc_scan_scores(lut, codes, iv, xa, ALPHA, mode, mask)
+    full4 = adc_scan4_scores(lut4, packed, iv, xa, ALPHA, mode, mask)
+    for r in (0, 77, 127):
+        sl = slice(r, r + 1)
+        one = adc_scan_scores(lut[sl].contiguous(), codes, iv[sl].contiguous(), xa, ALPHA, mode,
+                              mask[sl].contiguous())
+        one4 = adc_scan4_scores(lut4[sl].contiguous(), packed, iv[sl].contiguous(), xa, ALPHA,
+                                mode, mask[sl].contiguous())
+        assert torch.equal(one[0], full[r]) and torch.equal(one4[0], full4[r])
+
+
+def test_quantized_search_on_card_equals_cpu_on_integer_data(cuda_dev):
+    """Integer features, a codebook with rounded centroids and sq8 with
+    scale 1 and zero −128: every sum is exact, so the card's quantized
+    graph and brute searches equal the CPU's bit for bit."""
+    ds = make_hybrid_dataset(n=3000, n_queries=32, profile="sift", n_clusters=8,
+                             attr_cluster_corr=0.6, seed=2)
+    f = np.clip(np.round(ds.features / 33.5 * 4), -20, 20).astype(np.float32)
+    qf = np.clip(np.round(ds.query_features / 33.5 * 4), -20, 20).astype(np.float32)
+    cpu = Engine.build(f, ds.attrs, device="cpu")
+    idx = cpu.index
+    parts = (idx.features.numpy(), idx.attrs.numpy(), idx.graph.numpy())
+    meta = [{k: getattr(c, k) for k in c.__dataclass_fields__}
+            for c in (idx.metric_cfg, idx.help_cfg, idx.stats)]
+    q = QueryBatch.match(qf, ds.query_attrs)
+    for mode in ("sq8", "pq", "pq4"):
+        store = QuantizedVectors.build(idx.features, QuantConfig(mode, pq_subspaces=16,
+                                                                 pq_train_iters=3))
+        if mode == "sq8":
+            store.sq_params.scale.fill_(1.0)
+            store.sq_params.zero.fill_(-128.0)
+            store.codes.copy_(idx.features.to(torch.int8))
+        else:
+            store.codebook.centroids.round_()
+            store.codes = store.encode_rows(idx.features)
+        arrays = {"codes": store.codes.numpy()}
+        if mode == "sq8":
+            arrays.update(sq_scale=store.sq_params.scale.numpy(), sq_zero=store.sq_params.zero.numpy())
+        else:
+            arrays["centroids"] = store.codebook.centroids.numpy()
+        qmeta = {"cfg": {k: getattr(store.cfg, k) for k in store.cfg.__dataclass_fields__},
+                 "dim": None if store.codebook is None else store.codebook.dim,
+                 "codec": codec_spec(store.cfg)}
+        a = Engine(index_from_numpy(*parts, *meta, device="cpu",
+                                    quant=quant_from_numpy(qmeta, arrays, "cpu")))
+        b = Engine(index_from_numpy(*parts, *meta, device=cuda_dev,
+                                    quant=quant_from_numpy(qmeta, arrays, cuda_dev)))
+        for backend in ("graph", "brute"):
+            ra = a.search(q, SearchParams(k=10, backend=backend))
+            rb = b.search(q, SearchParams(k=10, backend=backend))
+            assert torch.equal(ra.ids, rb.ids.cpu()) and torch.equal(ra.sqdists, rb.sqdists.cpu())
+            assert torch.equal(ra.n_dist_evals, rb.n_dist_evals.cpu())
+            assert torch.equal(ra.n_code_evals, rb.n_code_evals.cpu())
+            assert int(ra.n_hops) == int(rb.n_hops)

@@ -136,7 +136,7 @@ def test_stable_single_v1_round_trips_both_ways(float_builds, tmp_path):
 
 def test_build_rejects_codecs_and_needs_a_device():
     f, a, _, _ = dataset(n=300, n_queries=2, integer=False)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):  # a codec is a QuantConfig, not its mode name
         TIndex.build(f, a, quant_cfg="pq", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):

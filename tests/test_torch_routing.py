@@ -119,8 +119,11 @@ def test_brute_oracle_exact_on_integer_features(int_case):
 
 
 def test_quantized_traversal_is_not_ported(int_case):
+    """A codec named in the config without a store to read codes from is
+    refused, as the reference refuses it (quantized search itself is held
+    to the reference in tests/test_torch_quant_search.py)."""
     _, tidx, batches = int_case
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs a quant store"):
         port_search(tidx, batches["match"], dict(k=10, pool_size=40, quant_mode="pq"))
 
 
