@@ -31,9 +31,20 @@ Phases:
      ONE_OF searched on both backends against the exact oracle (brute-ADC
      MATCH recall@10 must reach 0.5 for the PQ family). Last, profiled
      graph and brute searches, exact and pq (device busy share, top kernels)
-  5. a JSON line of every kernel's launches in phase 4 (the exact and the
-     quantized path, each counted from 0; a kernel of a path that the path
-     never launched fails the run), error and times
+  5. recsys: the fm model at its full width (F=39 fields, V=1,000,000 rows a
+     field, D=10; 1.56 GB of tables and 156 MB of linear weights drawn on
+     the card from --seed). fm_interaction at serve_p99 (B=512), serve_bulk
+     (B=262,144) and odd shapes, bit for bit against its plain version and
+     batch-invariant; fused_auto at the retrieval shape (M=10, L=4, B=1 and
+     B=512, N=1M) under its tolerance; the serve and retrieval steps on the
+     card against the CPU's at a cut vocabulary (V=1,000; N=20,000 items).
+     Then the recsys path: make_recsys_serve_step at serve_p99 and
+     serve_bulk, make_recsys_retrieval_step at retrieval_cand (one user
+     against 1,000,000 items, k=100) and at B=512, each a median of
+     several batches, then each profiled once
+  6. a JSON line of every kernel's launches in phases 4 and 5 (the exact,
+     quantized and recsys paths, each counted from 0; a kernel of a path
+     that the path never launched fails the run), error and times
 
 At N = 1M this dataset's graph recall is low (the AUTO-built HELP graph
 splits by attribute combination; the reference does the same): it is
@@ -77,6 +88,17 @@ QUANT_MODES = ("sq8", "pq", "pq4", "opq-pq", "opq-pq4")
 #: the CPU, and how far the card's recall may sit from the CPU's (float
 #: sums in another order change a few graph edges)
 SMALL_N, SMALL_RECALL_GAP = 20_000, 0.02
+#: phase 5: fm_interaction shapes besides the two serve cells (a D that is
+#: not a power of two, runs of fewer than 32 examples a block, an odd span
+#: without float4 loads, an example too large to stage)
+FM_ODD_SHAPES = ((7, 5, 3), (77, 100, 7), (50, 233, 3), (3, 2000, 9))
+#: the retrieval head's k (launch/build.py:310), the cut vocabulary and
+#: item count of the card-against-CPU check, and the retrieval tolerance:
+#: sq-dists rtol 1e-5, atol 1e-6, ids equal except at near-ties
+RETRIEVAL_K, CUT_VOCAB, CUT_ITEMS = 100, 1000, 20_000
+RETRIEVAL_RTOL, RETRIEVAL_ATOL = 1e-5, 1e-6
+#: item factors at the scale of a user vector (a sum of 39 rows of N(0, 0.01²))
+ITEM_SCALE = 0.0625
 
 
 def log(*a):
@@ -104,6 +126,33 @@ def cuda_ms(fn, reps: int = 20) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured in one
+    CUDA graph, replayed between two CUDA events after a warm-up replay.
+    The replay leaves out the host's time in the wrapper before each
+    launch, which ``cuda_ms`` counts and which sets it for kernels shorter
+    than about 0.1 ms. Memory freed inside the capture is reused by the
+    next call, so the graph holds about one call's outputs."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # build and allocate outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    b.synchronize()
+    del graph
+    return a.elapsed_time(b) / reps
 
 
 def target_cases(rng, qa_np, labels: int):
@@ -164,6 +213,7 @@ def check_kernels(dev, ds, alpha: float, seed: int) -> dict:
         qa = to_tensor(ds.attrs[rows], i32, dev)
         timings[tag] = dict(
             ms=cuda_ms(lambda: gather_auto(qv, qa, db_v, db_a, cand, alpha, "auto")),
+            device_ms=device_ms(lambda: gather_auto(qv, qa, db_v, db_a, cand, alpha, "auto")),
             plain_ms=cuda_ms(lambda: gather_auto_ref(qv, qa, db_v, db_a, cand, alpha, "auto")),
         )
         valid = cand[cand >= 0]
@@ -173,7 +223,8 @@ def check_kernels(dev, ds, alpha: float, seed: int) -> dict:
         ops = n_pairs * (3 * m + 4 * l + 4)
         timings[tag]["bound_ms"] = max(bytes_ / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS) * 1e3
         timings[tag]["bound_by"] = "bytes" if bytes_ / PEAK_BYTES_PER_S >= ops / PEAK_F32_FLOPS else "operations"
-        log(f"  gather_auto {tag} B={b} C={c} M={m}: kernel {timings[tag]['ms']:.4f} ms, "
+        log(f"  gather_auto {tag} B={b} C={c} M={m}: kernel {timings[tag]['ms']:.4f} ms "
+            f"(device {timings[tag]['device_ms']:.4f} ms), "
             f"plain {timings[tag]['plain_ms']:.4f} ms, bound {timings[tag]['bound_ms']:.4f} ms "
             f"({timings[tag]['bound_by']}; {rows_read} rows, {n_pairs} pairs)")
     if worst_ratio > 1.0:
@@ -226,20 +277,22 @@ def check_kernels(dev, ds, alpha: float, seed: int) -> dict:
         raise SystemExit("fused_auto: row 0 alone is not bitwise equal to row 0 in the batch")
     qa = to_tensor(ds.attrs[rows], i32, dev)
     ms = cuda_ms(lambda: fused_auto(qv, qa, db_v, db_a, alpha, "l2"))
+    dev_ms = device_ms(lambda: fused_auto(qv, qa, db_v, db_a, alpha, "l2"))
     plain_ms = cuda_ms(lambda: fused_auto_ref(qv, qa, db_v, db_a, alpha, "l2"))
     library_ms = cuda_ms(lambda: torch.cdist(qv, db_v))
     bytes_ = (b * m + n * m + n * l + b * l * 2) * 4 + b * n * 4
     ops = 2 * b * n * m + 2 * (b + n) * m + 4 * b * n
     bound_ms = max(bytes_ / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS) * 1e3
     bound_by = "bytes" if bytes_ / PEAK_BYTES_PER_S >= ops / PEAK_F32_FLOPS else "operations"
-    log(f"  fused_auto  B={b} N={n} M={m} l2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    log(f"  fused_auto  B={b} N={n} M={m} l2: kernel {ms:.4f} ms (device {dev_ms:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, "
         f"torch.cdist {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
         f"{2 * b * n * m / ms / 1e9:.2f} TFLOP/s")
     log(f"  fused_auto: max|err| {max_err:.3e} (tol (1e-5·(|q|²+|x|²)+1e-6)·pen² + 1e-6·|ref|), "
         f"batch-invariant bitwise: {invariant}")
     report["fused_auto"] = dict(
         max_abs_err=max_err, worst_err_over_tol=worst_ratio, bitwise_batch_invariant=invariant,
-        shape=f"B=128 N={n} M=128 L=5 (brute oracle)", ms=ms, plain_ms=plain_ms,
+        shape=f"B=128 N={n} M=128 L=5 (brute oracle)", ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
     )
     del db_v, db_a, qsq, xsq
@@ -327,19 +380,21 @@ def check_adc_kernels(dev, ds, alpha: float, seed: int) -> dict:
     qa = to_tensor(ds.attrs[rows], torch.int32, dev)
     for name, (fn, ref, lt, cd) in kernels.items():
         ms = cuda_ms(lambda: fn(lt, cd, qa, db_a, alpha, "l2"))
+        dev_ms = device_ms(lambda: fn(lt, cd, qa, db_a, alpha, "l2"))
         plain_ms = cuda_ms(lambda: ref(lt, cd, qa, db_a, alpha, "l2"), reps=5)
         k = lt.shape[2]
         bytes_ = cd.numel() + lt.numel() * 4 + b * n * 4  # codes, tables, scores (l2 mode)
         ops = b * n * (s + 1)  # one add per subspace and the clamp
         bound_ms = max(bytes_ / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS) * 1e3
         bound_by = "bytes" if bytes_ / PEAK_BYTES_PER_S >= ops / PEAK_F32_FLOPS else "operations"
-        log(f"  {name} B={b} N={n} S={s} K={k} l2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        log(f"  {name} B={b} N={n} S={s} K={k} l2: kernel {ms:.4f} ms (device {dev_ms:.4f} ms), "
+            f"plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}); {b * n * s / ms / 1e9:.1f} G lookups/s")
         report[name] = dict(
             max_abs_err=stats[name]["max_abs_err"], worst_err_over_tol=0.0,
             bitwise_equal=stats[name]["bitwise"], bitwise_batch_invariant=stats[name]["invariant"],
             shape=f"B={b} N={n} S={s} K={k} L={ds.attr_dim} (brute ADC scan, l2)",
-            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             # no single PyTorch call computes this: the one-hot product
             # would need an (N, S*K) one-hot of N*S*K*4 bytes (64 GB at 1M)
             library_ms=None,
@@ -431,30 +486,35 @@ def quant_match_recall(dev, ds, mode: str) -> dict:
             for b in ("graph", "brute")}
 
 
-def profile_search(eng, q, params) -> dict:
-    """One search under torch.profiler: wall time, the device's busy time
-    (kernel self time, summed as torch's own table total does) and the
-    kernels that take the most of it."""
+def profile_call(label: str, fn) -> dict:
+    """One call of ``fn`` under torch.profiler, after one warm-up: wall
+    time, the device's busy time (kernel self time, summed as torch's own
+    table total does) and the kernels that take the most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    eng.search(q, params)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.search(q, params)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    log(f"  profile {params.backend}: wall {wall_ms:.2f} ms under the profiler, device busy "
+    log(f"  profile {label}: wall {wall_ms:.2f} ms under the profiler, device busy "
         f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%, idle {100 - 100 * busy_ms / wall_ms:.1f}%)")
     for e in top:
         log(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms,
             "top": [(e.key[:90], e.self_device_time_total / 1e3, e.count) for e in top]}
+
+
+def profile_search(eng, q, params) -> dict:
+    """One search under torch.profiler (``profile_call``)."""
+    return profile_call(params.backend, lambda: eng.search(q, params))
 
 
 def check_result(res, n: int, b: int, k: int = 10) -> None:
@@ -619,6 +679,257 @@ def run_quant_path(dev, ds, eng, reps: int = 5):
     return out, keep
 
 
+def bound(bytes_: float, ops: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the FP32 rate."""
+    t_bytes, t_ops = bytes_ / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def recsys_batch(rng, cfg, b: int, dev) -> dict:
+    """b users' ids (B, F) and attribute targets (B, 4), from numpy."""
+    ids = rng.integers(0, cfg.vocab_per_field, (b, cfg.n_sparse), dtype=np.int32)
+    qa = rng.integers(0, 3, (b, cfg.n_attr_dims), dtype=np.int32)
+    return {"sparse": torch.from_numpy(ids).to(dev), "query_attrs": torch.from_numpy(qa).to(dev)}
+
+
+def make_items(dev, n: int, cfg, seed: int) -> dict:
+    """n candidates: (n, D) f32 factors and (n, L) int32 attributes in
+    [0, 3), drawn on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {
+        "item_embs": torch.randn((n, cfg.embed_dim), generator=g, device=dev).mul_(ITEM_SCALE),
+        "item_attrs": torch.randint(0, 3, (n, cfg.n_attr_dims), generator=g, device=dev,
+                                    dtype=torch.int32),
+    }
+
+
+def check_topk(got, want, label: str) -> None:
+    """Card (sq-dists, ids) against the CPU's: sq-dists within tolerance,
+    ids equal except at near-ties."""
+    gd, gi = (t.cpu() for t in got)
+    wd, wi = want
+    torch.testing.assert_close(gd, wd, rtol=RETRIEVAL_RTOL, atol=RETRIEVAL_ATOL)
+    tie = RETRIEVAL_ATOL + RETRIEVAL_RTOL * wd.abs()
+    for r, p in zip(*torch.nonzero(gi != wi, as_tuple=True)):
+        near = (wd[r] - wd[r, p]).abs() <= 2 * tie[r, p]
+        near[p] = False
+        if not bool(near.any()):
+            raise SystemExit(f"{label}: row {int(r)} slot {int(p)} id {int(gi[r, p])} != "
+                             f"{int(wi[r, p])} and no near-tie")
+
+
+def check_recsys_kernels(dev, cfg, params, seed: int) -> dict:
+    """Phase 5: fm_interaction on the embedding blocks of the two serve
+    cells and at odd shapes, bit for bit; fused_auto at the retrieval shape
+    (M = 10, L = 4, B = 1 and 512, N = 1M) within its PR 11 tolerance."""
+    from repro_torch.configs.fm import SPEC
+    from repro_torch.kernels.fm_interaction.ops import fm_interaction, fm_interaction_ref
+    from repro_torch.kernels.fused_auto.ops import fused_auto, fused_auto_ref
+    from repro_torch.kernels.gather_auto.ref import penalty_sa
+    from repro_torch.models.recsys import embedding_lookup, user_tower
+
+    rng = np.random.default_rng(seed + 4)
+    f, d = cfg.n_sparse, cfg.embed_dim
+    report = {}
+
+    # ---- fm_interaction: bit for bit, batch-invariant, at both serve cells
+    fm_stats = dict(bitwise=True, invariant=True, max_abs_err=0.0)
+
+    def fm_case(e, tag):
+        got = fm_interaction(e)
+        want = fm_interaction_ref(e)
+        torch.cuda.synchronize()
+        err = float((got.double() - want.double()).abs().max())
+        fm_stats["max_abs_err"] = max(fm_stats["max_abs_err"], err)
+        fm_stats["bitwise"] &= bool(torch.equal(got, want))
+        alone = fm_interaction(e[:1].contiguous())
+        fm_stats["invariant"] &= bool(torch.equal(alone[0], got[0]))
+        log(f"  fm_interaction {tag}: max|err|={err:.3e} bitwise={torch.equal(got, want)} "
+            f"row 0 alone bitwise={torch.equal(alone[0], got[0])}")
+
+    timings = {}
+    for cell in ("serve_p99", "serve_bulk"):
+        b = SPEC.cell(cell).global_batch
+        ids = rng.integers(0, cfg.vocab_per_field, (b, f), dtype=np.int32)
+        emb = embedding_lookup(params["tables"], torch.from_numpy(ids).to(dev))
+        fm_case(emb, f"{cell} B={b} F={f} D={d}")
+        ms = cuda_ms(lambda: fm_interaction(emb))
+        dev_ms = device_ms(lambda: fm_interaction(emb))
+        plain_ms = cuda_ms(lambda: fm_interaction_ref(emb), reps=5)
+        bound_ms, bound_by = bound(b * f * d * 4 + b * 4, b * (3 * f * d + 3 * d + 1))
+        timings[cell] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by)
+        log(f"  fm_interaction {cell} B={b}: kernel {ms:.4f} ms (device {dev_ms:.4f} ms), "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+            f"{b * f * d * 4 / dev_ms / 1e9:.1f} GB/s on the device")
+        del emb
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for shape in FM_ODD_SHAPES:
+        fm_case(torch.randn(shape, generator=g, device=dev).mul_(0.3), f"B,F,D={shape}")
+    if not fm_stats["bitwise"]:
+        raise SystemExit(f"fm_interaction is not bitwise equal to its plain version "
+                         f"(max|err| {fm_stats['max_abs_err']:.3e})")
+    if not fm_stats["invariant"]:
+        raise SystemExit("fm_interaction: row 0 alone is not bitwise equal to row 0 in the batch")
+    report["fm_interaction"] = dict(
+        max_abs_err=fm_stats["max_abs_err"], worst_err_over_tol=0.0, bitwise_equal=True,
+        bitwise_batch_invariant=True, shape=f"B=262144 F={f} D={d} (serve_bulk)",
+        **timings["serve_bulk"], serve_p99=timings["serve_p99"],
+        # no single PyTorch call computes the sum-square term: it takes a
+        # sum, a square, a difference and a reduction, each its own op
+        library_ms=None,
+    )
+
+    # ---- fused_auto at the retrieval shape: user vectors from the tower
+    items = make_items(dev, SPEC.cell("retrieval_cand").n_candidates, cfg, seed + 3)
+    xv, xa = items["item_embs"], items["item_attrs"]
+    n, m, l = xv.shape[0], d, xa.shape[1]
+    xsq = (xv.double() ** 2).sum(1)[None, :]
+    worst, max_err, invariant, retr = 0.0, 0.0, True, {}
+    for b in (1, 512):
+        batch = recsys_batch(rng, cfg, b, dev)
+        qv = user_tower(cfg, params, batch)
+        qa = batch["query_attrs"]
+        for mode in ("auto", "l2"):
+            got = fused_auto(qv, qa, xv, xa, 1.0, mode)
+            for r0 in range(0, b, 64):  # the tolerance in double, 64 rows at a time
+                sl = slice(r0, min(b, r0 + 64))
+                want = fused_auto_ref(qv[sl], qa[sl], xv, xa, 1.0, mode).double()
+                pen2 = 1.0
+                if mode == "auto":
+                    sa = penalty_sa(qa[sl], xa[None].expand(want.shape[0], -1, -1), None)
+                    pen2 = (1.0 + sa.double()) ** 2
+                qsq = (qv[sl].double() ** 2).sum(1)[:, None]
+                tol = (FUSED_RTOL_NORMS * (qsq + xsq) + FUSED_ATOL) * pen2 + 1e-6 * want.abs()
+                err = (got[sl].double() - want).abs()
+                worst = max(worst, float((err / tol).max()))
+                max_err = max(max_err, float(err.max()))
+                del want, pen2, tol, err
+            alone = fused_auto(qv[:1].contiguous(), qa[:1].contiguous(), xv, xa, 1.0, mode)
+            invariant &= bool(torch.equal(alone[0], got[0]))
+            del got
+        log(f"  fused_auto  B={b} N={n} M={m} L={l}: worst err/tol {worst:.3f}")
+        ms = cuda_ms(lambda: fused_auto(qv, qa, xv, xa, 1.0, "auto"))
+        dev_ms = device_ms(lambda: fused_auto(qv, qa, xv, xa, 1.0, "auto"))
+        plain_ms = cuda_ms(lambda: fused_auto_ref(qv, qa, xv, xa, 1.0, "auto"), reps=5)
+        library_ms = cuda_ms(lambda: torch.cdist(qv, xv))
+        bound_ms, bound_by = bound(
+            (b * m + n * m + n * l + b * l * 2) * 4 + b * n * 4,
+            2 * b * n * m + 2 * (b + n) * m + 4 * b * n + b * n * (5 * l + 3),
+        )
+        retr[f"B={b}"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
+                              bound_ms=bound_ms, bound_by=bound_by)
+        log(f"  fused_auto  B={b} N={n} M={m} L={l} auto: kernel {ms:.4f} ms (device "
+            f"{dev_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, torch.cdist {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by})")
+    if worst > 1.0:
+        raise SystemExit(f"fused_auto at M={m} disagrees with its plain version: err/tol {worst:.3f}")
+    if not invariant:
+        raise SystemExit(f"fused_auto at M={m}: row 0 alone is not bitwise equal to row 0")
+    report["fused_auto_retrieval"] = dict(
+        max_abs_err=max_err, worst_err_over_tol=worst, bitwise_batch_invariant=invariant,
+        shape=f"B=1 and B=512, N={n} M={m} L={l} auto (retrieval_cand)", **retr,
+    )
+    del items, xv, xa, xsq
+    torch.cuda.empty_cache()
+    return report
+
+
+def check_recsys_small(dev, seed: int) -> dict:
+    """Phase 5: the fm serve and retrieval steps on the card against the
+    CPU's plain versions at a cut vocabulary, with the same parameters."""
+    from repro_torch.configs.fm import make_config
+    from repro_torch.models.recsys import init_params
+    from repro_torch.train.step import make_recsys_retrieval_step, make_recsys_serve_step
+
+    cfg = dataclasses.replace(make_config(), vocab_per_field=CUT_VOCAB)
+    cpu_params = init_params(cfg, seed=seed, device="cpu")
+    card_params = {k: v.to(dev) for k, v in cpu_params.items()}
+    rng = np.random.default_rng(seed + 5)
+    batch = recsys_batch(rng, cfg, 512, dev)
+    serve = make_recsys_serve_step(cfg)
+    got = serve(card_params, batch).cpu()
+    want = serve(cpu_params, {k: v.cpu() for k, v in batch.items()})
+    err = float((got - want).abs().max())
+    if not bool(((got - want).abs() <= 1e-6 + 1e-6 * want.abs()).all()):
+        raise SystemExit(f"fm serve step: card logits differ from the CPU's by {err:.3e}")
+    out = {"serve_max_abs_err": err, "serve_bitwise": bool(torch.equal(got, want))}
+    items = make_items(dev, CUT_ITEMS, cfg, seed + 6)
+    users = {k: v[:16] for k, v in batch.items()}
+    card_batch = {**users, **items}
+    cpu_batch = {k: v.cpu() for k, v in card_batch.items()}
+    for shards in (1, 4):
+        step = make_recsys_retrieval_step(cfg, k=RETRIEVAL_K, topk_shards=shards)
+        want_r = step(cpu_params, cpu_batch)
+        got_r = step(card_params, card_batch)
+        check_topk(got_r, want_r, f"retrieval N={CUT_ITEMS} shards={shards}")
+        same = float((got_r[1].cpu() == want_r[1]).float().mean())
+        out[f"retrieval_shards{shards}_ids_equal"] = same
+    log(f"  cut vocabulary V={CUT_VOCAB}: serve B=512 card vs CPU max|err| {err:.3e} "
+        f"(bitwise {out['serve_bitwise']}); retrieval B=16 N={CUT_ITEMS} k={RETRIEVAL_K}: "
+        f"ids equal {out['retrieval_shards1_ids_equal']:.4f} (1 shard), "
+        f"{out['retrieval_shards4_ids_equal']:.4f} (4 shards)")
+    return out
+
+
+def run_recsys_path(dev, cfg, params, seed: int, reps: int = 20):
+    """Phase 5, the recsys path: make_recsys_serve_step at serve_p99 and
+    serve_bulk, make_recsys_retrieval_step at retrieval_cand and at B = 512.
+    Ids are uploaded before the clock starts; each latency is host time to
+    a synchronised result, the median over batches (the first, a warm-up,
+    not counted). Returns the results and the steps' closures for the
+    profiler."""
+    from repro_torch.configs.fm import SPEC
+    from repro_torch.train.step import make_recsys_retrieval_step, make_recsys_serve_step
+
+    rng = np.random.default_rng(seed + 2)
+    serve = make_recsys_serve_step(cfg)
+    retrieve = make_recsys_retrieval_step(cfg, k=RETRIEVAL_K)
+    items = make_items(dev, SPEC.cell("retrieval_cand").n_candidates, cfg, seed + 3)
+    n = items["item_embs"].shape[0]
+    out, last = {}, {}
+
+    def timed(label, fn, b, n_batches):
+        lat = []
+        for i in range(n_batches + 1):
+            batch = recsys_batch(rng, cfg, b, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(batch)
+            torch.cuda.synchronize()
+            if i:
+                lat.append((time.perf_counter() - t0) * 1e3)
+        med = statistics.median(lat)
+        out[label] = dict(batch=b, median_ms=med, min_ms=min(lat), max_ms=max(lat),
+                          batches=n_batches, examples_per_s=b / med * 1e3)
+        last[label] = batch
+        log(f"  {label:22s} B={b:<6d} median {med:.3f} ms (min {min(lat):.3f}, max "
+            f"{max(lat):.3f}, {n_batches} batches), {b / med * 1e3:.0f} examples/s")
+        return res
+
+    for cell, n_batches in (("serve_p99", reps), ("serve_bulk", 5)):
+        b = SPEC.cell(cell).global_batch
+        logits = timed(cell, lambda bt: serve(params, bt), b, n_batches)
+        if tuple(logits.shape) != (b,) or not bool(torch.isfinite(logits).all()):
+            raise SystemExit(f"{cell}: logits not finite of shape ({b},)")
+    for label, b, n_batches in (("retrieval_cand", 1, reps), ("retrieval B=512", 512, 3)):
+        dist, ids = timed(label, lambda bt: retrieve(params, {**bt, **items}), b, n_batches)
+        dist, ids = dist.cpu(), ids.cpu()
+        if tuple(ids.shape) != (b, RETRIEVAL_K) or not bool(((ids >= 0) & (ids < n)).all()):
+            raise SystemExit(f"{label}: ids not (B, {RETRIEVAL_K}) in [0, {n})")
+        if not bool(torch.isfinite(dist).all()) or not bool((dist[:, 1:] >= dist[:, :-1]).all()):
+            raise SystemExit(f"{label}: sq-dists not finite and ascending")
+    calls = {
+        "serve_p99": lambda: serve(params, last["serve_p99"]),
+        "serve_bulk": lambda: serve(params, last["serve_bulk"]),
+        "retrieval_cand": lambda: retrieve(params, {**last["retrieval_cand"], **items}),
+        "retrieval B=512": lambda: retrieve(params, {**last["retrieval B=512"], **items}),
+    }
+    return out, calls
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="corpus size (>= 200000 for a record)")
@@ -638,6 +949,7 @@ def main(argv=None) -> int:
     from repro_torch.api import SearchParams
     from repro_torch.kernels import build
     from repro_torch.kernels.adc_scan.ops import adc_scan4_scores, adc_scan_scores
+    from repro_torch.kernels.fm_interaction.ops import fm_interaction
     from repro_torch.kernels.fused_auto.ops import fused_auto
     from repro_torch.kernels.gather_auto.ops import gather_auto
 
@@ -676,7 +988,8 @@ def main(argv=None) -> int:
     # counts start from 0 just before it and are read just after it
     log("[4] main path: Engine.build + Engine.search (graph, brute), exact then quantized")
     wrappers = {"gather_auto": gather_auto, "fused_auto": fused_auto,
-                "adc_scan": adc_scan_scores, "adc_scan4": adc_scan4_scores}
+                "adc_scan": adc_scan_scores, "adc_scan4": adc_scan4_scores,
+                "fm_interaction": fm_interaction}
 
     def drive(path, kernels, *args):
         for w in wrappers.values():
@@ -692,15 +1005,37 @@ def main(argv=None) -> int:
 
     (main_out, eng), exact_launches = drive(
         run_main_path, ("gather_auto", "fused_auto"), dev, ds)
-    (quant_out, pq_eng), quant_launches = drive(run_quant_path, tuple(wrappers), dev, ds, eng)
-    launches = {k: exact_launches[k] + quant_launches[k] for k in wrappers}
+    (quant_out, pq_eng), quant_launches = drive(
+        run_quant_path, ("gather_auto", "fused_auto", "adc_scan", "adc_scan4"), dev, ds, eng)
     # last: searches timed after the profiler run slower; not counted
     q = predicate_batches(ds)["MATCH"]
     profiles = {f"{tag}/{b}": profile_search(e, q, SearchParams(k=10, backend=b))
                 for tag, e in (("exact", eng), ("pq", pq_eng)) for b in ("graph", "brute")}
     del eng, pq_eng
+    torch.cuda.empty_cache()
 
-    # ---- phase 5: the kernels line
+    # ---- phase 5: the recsys path at the full fm width
+    log("[5] recsys: the fm model's serve and retrieval steps at full width")
+    from repro_torch.configs.fm import make_config
+    from repro_torch.models.common import tree_bytes
+    from repro_torch.models.recsys import init_params
+
+    fm_cfg = make_config()
+    t0 = time.perf_counter()
+    fm_params = init_params(fm_cfg, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    log(f"  fm F={fm_cfg.n_sparse} V={fm_cfg.vocab_per_field} D={fm_cfg.embed_dim}: "
+        f"{fm_cfg.param_count} parameters ({tree_bytes(fm_params) / 1e9:.3f} GB) "
+        f"drawn on the card in {time.perf_counter() - t0:.2f} s")
+    kern.update(check_recsys_kernels(dev, fm_cfg, fm_params, args.seed))
+    recsys_small = check_recsys_small(dev, args.seed)
+    (recsys_out, calls), recsys_launches = drive(
+        run_recsys_path, ("fm_interaction", "fused_auto"), dev, fm_cfg, fm_params, args.seed)
+    launches = {k: exact_launches[k] + quant_launches[k] + recsys_launches[k] for k in wrappers}
+    profiles.update({f"recsys/{label}": profile_call(label, fn) for label, fn in calls.items()})
+    del fm_params, calls
+
+    # ---- phase 6: the kernels line
     sources = {
         "gather_auto": ("src/repro_torch/kernels/csrc/gather_auto.cu",
                         "src/repro/kernels/gather_auto/gather_auto.py:73"),
@@ -710,22 +1045,31 @@ def main(argv=None) -> int:
                      "src/repro/kernels/adc_scan/adc_scan.py:102"),
         "adc_scan4": ("src/repro_torch/kernels/csrc/adc_scan.cu",
                       "src/repro/kernels/adc_scan/adc_scan.py:160"),
+        "fm_interaction": ("src/repro_torch/kernels/csrc/fm_interaction.cu",
+                           "src/repro/kernels/fm_interaction/fm_interaction.py:34"),
     }
+    kern["fused_auto"]["retrieval"] = kern.pop("fused_auto_retrieval")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": kern[name]["max_abs_err"],
-         "ms": kern[name]["ms"], "plain_ms": kern[name]["plain_ms"],
+         "ms": kern[name]["ms"], "device_ms": kern[name]["device_ms"],
+         "plain_ms": kern[name]["plain_ms"],
          "bound_ms": kern[name]["bound_ms"], "bound_by": kern[name]["bound_by"],
          "library_ms": kern[name]["library_ms"], "shape": kern[name]["shape"],
          "worst_err_over_tol": kern[name]["worst_err_over_tol"],
-         "bitwise_batch_invariant": kern[name]["bitwise_batch_invariant"]}
+         "bitwise_batch_invariant": kern[name]["bitwise_batch_invariant"],
+         **{k: kern[name][k] for k in ("serve_p99", "retrieval") if k in kern[name]}}
         for name, (src, rep) in sources.items()
     ]}
-    log("[5] summary " + json.dumps({"n": args.n, "main_path": main_out, "quantized": quant_out,
+    log("[6] summary " + json.dumps({"n": args.n, "main_path": main_out, "quantized": quant_out,
+                                     "recsys": recsys_out, "recsys_cut_vocab": recsys_small,
                                      "profiles": profiles, "small_input": small,
                                      "launches": {"exact": exact_launches,
-                                                  "quantized": quant_launches},
-                                     "gather_descent_block": kern["gather_auto"]["descent_block"]}))
+                                                  "quantized": quant_launches,
+                                                  "recsys": recsys_launches},
+                                     "gather_descent_block": kern["gather_auto"]["descent_block"],
+                                     "fm_serve_p99": kern["fm_interaction"]["serve_p99"],
+                                     "fused_auto_retrieval": kern["fused_auto"]["retrieval"]}))
     log(gpu_line())
     log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,9 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version.
 
 ``gather_auto``: the AUTO scorer over each query's own candidate ids (fused
-row gather). ``fused_auto``: the tiled brute-force AUTO scorer. CPU tensors
-go to the plain version in ``ref.py``; CUDA tensors launch the kernel built
-from ``csrc/`` by ``build.py``, or the call raises.
+row gather). ``fused_auto``: the tiled brute-force AUTO scorer.
+``adc_scan``: the brute scan over PQ codes (8-bit and packed 4-bit).
+``fm_interaction``: the FM model's second-order term. CPU tensors go to the
+plain version in ``ref.py``; CUDA tensors launch the kernel built from
+``csrc/`` by ``build.py``, or the call raises.
 """

@@ -38,6 +38,8 @@ SIGNATURES = {
     # lut, codes, qlo, qhi, mask, xa, out, B, N, S, K, L, inv_alpha, mode, stream
     "adc_scan": (P, P, P, P, P, P, P, I, I, I, I, I, F, I, P),
     "adc_scan4": (P, P, P, P, P, P, P, I, I, I, I, I, F, I, P),
+    # emb, out, B, F, D, stream
+    "fm_interaction": (P, P, I, I, I, P),
 }
 #: the source file stem of each launcher that does not live in <name>.cu.
 SOURCES = {"adc_scan4": "adc_scan"}

@@ -46,14 +46,14 @@ def split_targets(qa: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 #: operand dtypes other than int32, by wrapper argument name.
 _DTYPES = {
     "qv": torch.float32, "xv": torch.float32, "db_v": torch.float32, "lut": torch.float32,
-    "codes": torch.uint8,
+    "codes": torch.uint8, "emb": torch.float32,
 }
 
 
 def check_operands(name: str, **tensors: Optional[torch.Tensor]) -> torch.device:
     """Validate a kernel wrapper's operands: one device, contiguous, and
-    the dtype the kernel reads (float32 rows and tables, uint8 codes, int32
-    ids/attributes/masks). Returns the common device."""
+    the dtype the kernel reads (float32 rows, tables and embeddings, uint8
+    codes, int32 ids/attributes/masks). Returns the common device."""
     device = None
     for arg, t in tensors.items():
         if t is None:

@@ -1,0 +1,43 @@
+"""Plain PyTorch versions of the FM second-order interaction (Rendle,
+ICDM'10).
+
+    second_order(E) = ½ Σ_d [ (Σ_f e_fd)² − Σ_f e_fd² ]   for E (B, F, D)
+
+``fm_interaction_ref`` is the O(F·D) sum-square trick in a fixed order:
+``s`` and ``sq`` sum over f = 0 … F−1, one rounded add a field (the square
+rounded first); ``t_d = s_d·s_d − sq_d``; the output sums ``t_d`` over
+d = 0 … D−1, one add a term, then multiplies by 0.5. Every step is its own
+PyTorch op, so nothing is contracted into an fma, and the CUDA kernel
+(``csrc/fm_interaction.cu``) repeats the same steps: the two agree bit for
+bit. ``fm_interaction_pairwise_ref`` is the O(F²·D) definition
+Σ_{i<j} ⟨e_i, e_j⟩ it is checked against.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def fm_interaction_ref(emb: torch.Tensor) -> torch.Tensor:
+    """(B,) f32 second-order term of (B, F, D) field embeddings."""
+    e = emb.to(torch.float32)
+    b, f, d = e.shape
+    s = torch.zeros((b, d), dtype=torch.float32, device=e.device)
+    sq = torch.zeros_like(s)
+    for i in range(f):
+        x = e[:, i, :]
+        s = s + x
+        sq = sq + x * x
+    t = s * s - sq
+    acc = torch.zeros((b,), dtype=torch.float32, device=e.device)
+    for j in range(d):
+        acc = acc + t[:, j]
+    return 0.5 * acc
+
+
+def fm_interaction_pairwise_ref(emb: torch.Tensor) -> torch.Tensor:
+    """The literal definition Σ_{i<j} ⟨e_i, e_j⟩, used to validate the
+    sum-square form."""
+    e = emb.to(torch.float32)
+    gram = torch.einsum("bfd,bgd->bfg", e, e)
+    iu = torch.triu_indices(e.shape[1], e.shape[1], offset=1, device=e.device)
+    return gram[:, iu[0], iu[1]].sum(-1)

@@ -6,27 +6,34 @@ JAX nor the reference, so it runs on a machine with only PyTorch:
 
 Each kernel is held against its plain version on the same card tensors
 (gather_auto rtol 1e-5; fused_auto |Δ| ≤ (1e-5·(‖q‖² + ‖x‖²) + 1e-6)·pen²
-+ 1e-6·|ref|; adc_scan and adc_scan4 bit for bit), must be bitwise
-batch-invariant, and a search on integer-valued data must equal the CPU's
-plain-version search bit for bit, exact and quantized.
++ 1e-6·|ref|; adc_scan, adc_scan4 and fm_interaction bit for bit), must be
+bitwise batch-invariant, and a search on integer-valued data must equal the
+CPU's plain-version search bit for bit, exact and quantized. The fm serve
+and retrieval steps on the card must agree with the CPU's.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.api import Engine, QueryBatch, SearchParams  # noqa: E402
+from repro_torch.configs import fm  # noqa: E402
 from repro_torch.core.index import index_from_numpy  # noqa: E402
 from repro_torch.data.synthetic import make_hybrid_dataset  # noqa: E402
 from repro_torch.kernels.adc_scan.ops import (  # noqa: E402
     adc_scan4_ref, adc_scan4_scores, adc_scan_ref, adc_scan_scores,
 )
+from repro_torch.kernels.fm_interaction.ops import fm_interaction, fm_interaction_ref  # noqa: E402
 from repro_torch.kernels.fused_auto.ops import fused_auto, fused_auto_ref  # noqa: E402
 from repro_torch.kernels.gather_auto.ops import gather_auto, gather_auto_ref  # noqa: E402
 from repro_torch.kernels.gather_auto.ref import penalty_sa  # noqa: E402
+from repro_torch.models import recsys  # noqa: E402
 from repro_torch.quant import (  # noqa: E402
     QuantConfig, QuantizedVectors, codec_spec, pack_nibbles, quant_from_numpy, unpack_nibbles,
 )
+from repro_torch.train.step import make_recsys_retrieval_step, make_recsys_serve_step  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -205,3 +212,81 @@ def test_quantized_search_on_card_equals_cpu_on_integer_data(cuda_dev):
             assert torch.equal(ra.n_dist_evals, rb.n_dist_evals.cpu())
             assert torch.equal(ra.n_code_evals, rb.n_code_evals.cpu())
             assert int(ra.n_hops) == int(rb.n_hops)
+
+
+#: (B, F, D): serve_p99 and serve_bulk at the fm widths; odd shapes, a run
+#: of fewer than 32 examples a block (F·D = 700), an odd span (no float4
+#: loads, F·D = 699) and an example too large to stage (read from memory)
+FM_SHAPES = [(512, 39, 10), (262144, 39, 10), (7, 5, 3), (1000, 3, 5), (77, 100, 7),
+             (50, 233, 3), (3, 2000, 9)]
+
+
+@pytest.mark.parametrize("shape", FM_SHAPES)
+def test_fm_interaction_bitwise_equal_and_batch_invariant(cuda_dev, shape):
+    g = torch.Generator(device=cuda_dev).manual_seed(sum(shape))
+    e = torch.randn(shape, generator=g, device=cuda_dev) * 0.3
+    n0 = fm_interaction.launches
+    got = fm_interaction(e)
+    torch.cuda.synchronize()
+    assert fm_interaction.launches == n0 + 1
+    assert torch.equal(got, fm_interaction_ref(e))
+    for r in (0, shape[0] - 1):
+        assert torch.equal(fm_interaction(e[r:r + 1].contiguous())[0], got[r])
+    # a buffer off 16-byte alignment takes the scalar loads
+    buf = torch.empty(e.numel() + 1, device=cuda_dev)
+    shifted = buf[1:].view(shape)
+    shifted.copy_(e)
+    assert torch.equal(fm_interaction(shifted), got)
+
+
+@pytest.mark.parametrize("mode", ["auto", "l2"])
+@pytest.mark.parametrize("b", [1, 5])
+def test_fused_auto_at_the_retrieval_shape(cuda_dev, mode, b):
+    """M = 10, L = 4: the scalar (non-float4) path of the kernel."""
+    qv, xv, qa, xa, iv, mask, cand = inputs(b, 20011, 10, 4, seed=b, dev=cuda_dev)
+    got = fused_auto(qv, qa, xv, xa, 1.0, mode)
+    fr = fused_auto_ref(qv, qa, xv, xa, 1.0, mode).double()
+    pen2 = 1.0
+    if mode == "auto":
+        pen2 = (1.0 + penalty_sa(qa, xa[None].expand(b, -1, -1), None).double()) ** 2
+    norms = (qv.double() ** 2).sum(1)[:, None] + (xv.double() ** 2).sum(1)[None, :]
+    tol = (1e-5 * norms + 1e-6) * pen2 + 1e-6 * fr.abs()
+    assert bool(((got.double() - fr).abs() <= tol).all())
+    assert torch.equal(fused_auto(qv[:1].contiguous(), qa[:1].contiguous(), xv, xa, 1.0,
+                                  mode)[0], got[0])
+
+
+def test_fm_serve_and_retrieval_steps_on_card_match_cpu(cuda_dev):
+    """Logits |Δ| ≤ 1e-6 + 1e-6·|cpu| (the kernel equals the plain version
+    bit for bit and the gathers and field sums are exact, so the two are
+    expected equal); retrieval sq-dists rtol 1e-5, atol 1e-6, ids equal
+    except at near-ties."""
+    cfg = dataclasses.replace(fm.make_config(), vocab_per_field=1000)
+    cpu = recsys.init_params(cfg, seed=0, device="cpu")
+    card = {k: v.to(cuda_dev) for k, v in cpu.items()}
+    rng = np.random.default_rng(0)
+    ids = rng.integers(-1000, 1000, (512, 39)).astype(np.int32)
+    n0 = fm_interaction.launches
+    got = make_recsys_serve_step(cfg)(card, {"sparse": torch.from_numpy(ids).to(cuda_dev)})
+    torch.cuda.synchronize()
+    assert fm_interaction.launches == n0 + 1
+    want = make_recsys_serve_step(cfg)(cpu, {"sparse": ids})
+    assert bool(((got.cpu() - want).abs() <= 1e-6 + 1e-6 * want.abs()).all())
+    batch = {
+        "sparse": ids[:4], "query_attrs": rng.integers(0, 3, (4, 4)).astype(np.int32),
+        "item_embs": (rng.normal(size=(20000, 10)) * 0.0625).astype(np.float32),
+        "item_attrs": rng.integers(0, 3, (20000, 4)).astype(np.int32),
+    }
+    on_card = {k: torch.from_numpy(v).to(cuda_dev) for k, v in batch.items()}
+    f0 = fused_auto.launches
+    for shards in (1, 4):
+        step = make_recsys_retrieval_step(cfg, k=100, topk_shards=shards)
+        cd, ci = (t.cpu() for t in step(card, on_card))
+        pd, pi = step(cpu, batch)
+        torch.testing.assert_close(cd, pd, rtol=1e-5, atol=1e-6)
+        tie = 1e-6 + 1e-5 * pd.abs()
+        for r, p in zip(*torch.nonzero(ci != pi, as_tuple=True)):
+            near = (pd[r] - pd[r, p]).abs() <= 2 * tie[r, p]
+            near[p] = False
+            assert bool(near.any())
+    assert fused_auto.launches == f0 + 2
