@@ -13,7 +13,11 @@ Phases:
   2. kernels: gather_auto at a refine hop (B=128, C=1280) and an NN-descent
      block (B=2048, C=520), fused_auto at (B=128, N) - point, interval and
      masked targets, auto and l2 modes - against their plain versions, with
-     a bitwise batch-invariance check and CUDA-event timings; adc_scan
+     a bitwise batch-invariance check and CUDA-event timings of each mode;
+     fused_auto on integer-valued operands bit for bit against its plain
+     version at B in {1, 16, 17, 128, 512} and M in {10, 128} (each tile of
+     the kernel), and rows of B=128 and B=512 batches against single-row
+     calls bit for bit; adc_scan
      (K=256) and adc_scan4 (K=16) at (B=128, N, S=64), bit for bit against
      their plain versions, batch-invariant, adc_scan4 on packed codes equal
      to adc_scan on the same codes unpacked, plus a small odd-S case
@@ -36,7 +40,7 @@ Phases:
      the card from --seed). fm_interaction at serve_p99 (B=512), serve_bulk
      (B=262,144) and odd shapes, bit for bit against its plain version and
      batch-invariant; fused_auto at the retrieval shape (M=10, L=4, B=1 and
-     B=512, N=1M) under its tolerance; the serve and retrieval steps on the
+     B=512, N=1M) under its tolerance, timed in auto and l2 modes; the serve and retrieval steps on the
      card against the CPU's at a cut vocabulary (V=1,000; N=20,000 items).
      Then the recsys path: make_recsys_serve_step at serve_p99 and
      serve_bulk, make_recsys_retrieval_step at retrieval_cand (one user
@@ -80,6 +84,11 @@ GATHER_RTOL = 1e-5
 #: scaled by the penalty (1 + sa/α)² in auto mode.
 FUSED_RTOL_NORMS, FUSED_ATOL = 1e-5, 1e-6
 MATCH_RECALL_FLOOR = 0.5
+#: fused_auto's tiles and load paths: batches on both sides of each tile's
+#: bound (16 and 64 queries), the retrieval and oracle widths, and a row
+#: count that is not a multiple of 4 (scalar stores) beside one that is
+FUSED_EXACT_BATCHES, FUSED_EXACT_WIDTHS = (1, 16, 17, 128, 512), (10, 128)
+FUSED_EXACT_ROWS = (65_536, 65_539)
 #: ADC subspaces: the pq_subspaces of the repo's quant sweep
 #: (benchmarks/paper_benchmarks.py:360); 2 dims each at M = 128.
 ADC_S = 64
@@ -280,6 +289,8 @@ def check_kernels(dev, ds, alpha: float, seed: int) -> dict:
     dev_ms = device_ms(lambda: fused_auto(qv, qa, db_v, db_a, alpha, "l2"))
     plain_ms = cuda_ms(lambda: fused_auto_ref(qv, qa, db_v, db_a, alpha, "l2"))
     library_ms = cuda_ms(lambda: torch.cdist(qv, db_v))
+    auto_ms = cuda_ms(lambda: fused_auto(qv, qa, db_v, db_a, alpha, "auto"))
+    auto_dev_ms = device_ms(lambda: fused_auto(qv, qa, db_v, db_a, alpha, "auto"))
     bytes_ = (b * m + n * m + n * l + b * l * 2) * 4 + b * n * 4
     ops = 2 * b * n * m + 2 * (b + n) * m + 4 * b * n
     bound_ms = max(bytes_ / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS) * 1e3
@@ -288,16 +299,80 @@ def check_kernels(dev, ds, alpha: float, seed: int) -> dict:
         f"plain {plain_ms:.4f} ms, "
         f"torch.cdist {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
         f"{2 * b * n * m / ms / 1e9:.2f} TFLOP/s")
+    log(f"  fused_auto  B={b} N={n} M={m} auto: kernel {auto_ms:.4f} ms (device "
+        f"{auto_dev_ms:.4f} ms): the epilogue's penalty costs {auto_dev_ms - dev_ms:.4f} ms")
     log(f"  fused_auto: max|err| {max_err:.3e} (tol (1e-5·(|q|²+|x|²)+1e-6)·pen² + 1e-6·|ref|), "
         f"batch-invariant bitwise: {invariant}")
     report["fused_auto"] = dict(
         max_abs_err=max_err, worst_err_over_tol=worst_ratio, bitwise_batch_invariant=invariant,
         shape=f"B=128 N={n} M=128 L=5 (brute oracle)", ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+        auto_ms=auto_ms, auto_device_ms=auto_dev_ms,
     )
     del db_v, db_a, qsq, xsq
     torch.cuda.empty_cache()
     return report
+
+
+def check_fused_auto_exact(dev, alpha: float, seed: int) -> dict:
+    """Phase 2: fused_auto on integer-valued operands (features in
+    [-20, 20], so every sum is exact in f32) equals its plain version bit
+    for bit, in auto and l2 modes with point, interval and masked targets,
+    at every batch of FUSED_EXACT_BATCHES (each tile) and width of
+    FUSED_EXACT_WIDTHS; and rows 0, 77 and B-1 of B = 128 and B = 512
+    batches of float data equal single-row calls bit for bit."""
+    from repro_torch.kernels.fused_auto.ops import fused_auto, fused_auto_ref
+
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    l, labels, cases, invariant = 5, 4, 0, True
+    for m in FUSED_EXACT_WIDTHS:
+        for i, b in enumerate(FUSED_EXACT_BATCHES):
+            n = FUSED_EXACT_ROWS[i % 2]
+            qv = torch.randint(-20, 21, (b, m), generator=g, device=dev).float()
+            xv = torch.randint(-20, 21, (n, m), generator=g, device=dev).float()
+            xa = torch.randint(0, labels, (n, l), generator=g, device=dev, dtype=torch.int32)
+            qa = torch.randint(0, labels, (b, l), generator=g, device=dev, dtype=torch.int32)
+            other = torch.randint(0, labels, (b, l), generator=g, device=dev, dtype=torch.int32)
+            mask = torch.randint(0, 2, (b, l), generator=g, device=dev, dtype=torch.int32)
+            targets = {
+                "point": (qa, None),
+                "interval": (torch.stack([torch.minimum(qa, other), torch.maximum(qa, other)], -1)
+                             .contiguous(), None),
+                "masked": (qa, mask),
+            }
+            for tname, (qt, mk) in targets.items():
+                for mode in ("auto", "l2"):
+                    got = fused_auto(qv, qt, xv, xa, alpha, mode, mk)
+                    want = fused_auto_ref(qv, qt, xv, xa, alpha, mode, mk)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        bad = int((got != want).sum())
+                        raise SystemExit(
+                            f"fused_auto B={b} N={n} M={m} {tname} {mode}: {bad} outputs differ "
+                            f"from the plain version on integer data "
+                            f"(max|err| {float((got - want).abs().max()):.3e})")
+                    cases += 1
+            del xv, got, want
+        for b in (128, 512):  # float data, rows against single-row calls
+            qv = torch.randn((b, m), generator=g, device=dev)
+            xv = torch.randn((FUSED_EXACT_ROWS[1], m), generator=g, device=dev)
+            xa = torch.randint(0, labels, (xv.shape[0], l), generator=g, device=dev,
+                               dtype=torch.int32)
+            qa = torch.randint(0, labels, (b, l), generator=g, device=dev, dtype=torch.int32)
+            for mode in ("auto", "l2"):
+                full = fused_auto(qv, qa, xv, xa, alpha, mode)
+                for r in (0, 77, b - 1):
+                    one = fused_auto(qv[r:r + 1].contiguous(), qa[r:r + 1].contiguous(), xv, xa,
+                                     alpha, mode)
+                    invariant &= bool(torch.equal(one[0], full[r]))
+            del xv, full
+    if not invariant:
+        raise SystemExit("fused_auto: a row of a B=128 or B=512 batch differs from a single-row call")
+    log(f"  fused_auto: {cases} integer cases bit for bit against the plain version "
+        f"(B in {FUSED_EXACT_BATCHES}, M in {FUSED_EXACT_WIDTHS}, N in {FUSED_EXACT_ROWS}); "
+        f"rows 0, 77, B-1 of B=128 and 512 equal single-row calls: {invariant}")
+    torch.cuda.empty_cache()
+    return {"fused_auto_exact_cases": cases, "fused_auto_rows_equal_single_calls": invariant}
 
 
 def check_adc_kernels(dev, ds, alpha: float, seed: int) -> dict:
@@ -814,16 +889,19 @@ def check_recsys_kernels(dev, cfg, params, seed: int) -> dict:
         dev_ms = device_ms(lambda: fused_auto(qv, qa, xv, xa, 1.0, "auto"))
         plain_ms = cuda_ms(lambda: fused_auto_ref(qv, qa, xv, xa, 1.0, "auto"), reps=5)
         library_ms = cuda_ms(lambda: torch.cdist(qv, xv))
+        l2_ms = cuda_ms(lambda: fused_auto(qv, qa, xv, xa, 1.0, "l2"))
+        l2_dev_ms = device_ms(lambda: fused_auto(qv, qa, xv, xa, 1.0, "l2"))
         bound_ms, bound_by = bound(
             (b * m + n * m + n * l + b * l * 2) * 4 + b * n * 4,
             2 * b * n * m + 2 * (b + n) * m + 4 * b * n + b * n * (5 * l + 3),
         )
         retr[f"B={b}"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
-                              bound_ms=bound_ms, bound_by=bound_by)
+                              bound_ms=bound_ms, bound_by=bound_by, l2_ms=l2_ms,
+                              l2_device_ms=l2_dev_ms)
         log(f"  fused_auto  B={b} N={n} M={m} L={l} auto: kernel {ms:.4f} ms (device "
             f"{dev_ms:.4f} ms), plain "
             f"{plain_ms:.4f} ms, torch.cdist {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by})")
+            f"({bound_by}); l2: kernel {l2_ms:.4f} ms (device {l2_dev_ms:.4f} ms)")
     if worst > 1.0:
         raise SystemExit(f"fused_auto at M={m} disagrees with its plain version: err/tol {worst:.3f}")
     if not invariant:
@@ -978,6 +1056,7 @@ def main(argv=None) -> int:
     # ---- phase 2: kernels against their plain versions
     log("[2] kernels against their plain versions")
     kern = check_kernels(dev, ds, alpha, args.seed)
+    kern["fused_auto"].update(check_fused_auto_exact(dev, alpha, args.seed))
     kern.update(check_adc_kernels(dev, ds, alpha, args.seed))
 
     # ---- phase 3: a small input against the CPU's plain versions
@@ -1058,7 +1137,9 @@ def main(argv=None) -> int:
          "library_ms": kern[name]["library_ms"], "shape": kern[name]["shape"],
          "worst_err_over_tol": kern[name]["worst_err_over_tol"],
          "bitwise_batch_invariant": kern[name]["bitwise_batch_invariant"],
-         **{k: kern[name][k] for k in ("serve_p99", "retrieval") if k in kern[name]}}
+         **{k: kern[name][k] for k in ("serve_p99", "retrieval", "auto_ms", "auto_device_ms",
+                                       "fused_auto_exact_cases",
+                                       "fused_auto_rows_equal_single_calls") if k in kern[name]}}
         for name, (src, rep) in sources.items()
     ]}
     log("[6] summary " + json.dumps({"n": args.n, "main_path": main_out, "quantized": quant_out,

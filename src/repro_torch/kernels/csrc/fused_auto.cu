@@ -3,7 +3,8 @@
 // Replaces the TPU kernel src/repro/kernels/fused_auto/fused_auto.py:
 // fused_auto_scores (Pallas body l.44-81), and on the main path its jnp
 // twin auto.brute_fused_sqdist: the brute backend, the exact oracle, the
-// graph-quality psi sample of the build and the planner's timing probe.
+// graph-quality psi sample of the build, the planner's timing probe and the
+// recsys retrieval head.
 //
 // For query b and database row n:
 //   sv2 = max((|q_b|^2 + |x_n|^2) - 2 * (q_b . x_n), 0)     over the full M
@@ -21,147 +22,310 @@
 // __fadd_rn, never contracted into an fma), reproduces its scores bit for
 // bit. (The Pallas body multiplies by a reciprocal taken in double.)
 //
-// What bounds it on this card: at B = 128, N = 1M, M = 128 it does
-// 2 * B * N * M = 34 GFLOP against ~1 GB of traffic (the rows read once,
-// the (B, N) scores written once), so float32 arithmetic bounds it (67
-// TFLOP/s outside the tensor cores on the H100 SXM data sheet) once B is
-// past ~64 queries. It stays in CUDA-core FFMA on purpose: TF32 keeps about
-// three digits and would break parity with the oracle.
+// What bounds it on this card, at the three shapes the port runs:
+// - brute oracle, B = 128, N = 1M, M = 128: 2 * B * N * M = 34 GFLOP
+//   against ~1 GB of traffic, so float32 arithmetic bounds it (67 TFLOP/s
+//   outside the tensor cores on the H100 SXM data sheet). It stays in
+//   CUDA-core FFMA on purpose: TF32 keeps about three digits and would
+//   break parity with the oracle.
+// - recsys retrieval, M = 10, L = 4: bytes bound it. At B = 512 the 2 GB
+//   of (B, N) scores written; at B = 1 the 56 MB of rows and attributes
+//   read. At these widths the penalty (5 operations per attribute per
+//   output) costs more than the 10 FFMA of the dot product.
 //
-// Design: a 64 x 64 output tile per block of 256 threads, each thread a
-// 4 x 4 register micro-tile. M is staged through shared memory in 16-wide
-// chunks (float4 loads along M, stored k-major so the inner loop reads two
-// float4 per 16 FFMA). The squared norms come from the same staged tiles:
-// threads 0..63 sum the query rows, threads 64..127 the database rows. The
-// epilogue clamps at 0, applies the penalty from xa, qlo, qhi and mask, and
-// writes float4 rows of the tile.
+// Design: one template, three tiles, picked by the launcher from B alone:
+//   B <= 16:      16 x 256 outputs a block, a 4 x 4 register tile a thread
+//                 (narrow: one block covers 256 rows, so a block's loads,
+//                 rows and attributes together, are issued at once and one
+//                 DRAM latency is exposed per block, not one per phase);
+//   B <= 64:      64 x 64, 4 x 4 a thread;
+//   otherwise:    128 x 128, 8 x 8 a thread (64 FFMA per 4 shared float4
+//                 loads), two blocks an SM.
+// Each has 256 threads.
+// - Feature tiles go through shared memory k-major, in chunks of 16 along
+//   M, with two buffers when M > 16: the next chunk's copies are in flight
+//   while this chunk's FFMAs run, with one barrier a chunk. The copies are
+//   4-byte cp.async written straight to their k-major slot, so the tile is
+//   transposed on the way in and no thread holds the data in registers.
+//   (A 16-byte copy would land four k of one row side by side and need a
+//   transpose pass through registers; the 4-byte copies take fewer
+//   instructions than that pass, and need no alignment, so there is one
+//   path for every M.) Consecutive threads copy consecutive addresses:
+//   when a chunk holds whole rows (M <= 16, e.g. M = 10) the block's tile
+//   is one contiguous span of rows * M floats, read end to end.
+// - The attribute operands of the tile (xa's BN x L, and BM x L each of
+//   qlo, qhi and mask) are read once, coalesced, converted to float once
+//   and kept l-major in dynamic shared memory sized by L, while the first
+//   chunk's copies are in flight. The epilogue's l loop then reads shared
+//   memory: per row of its tile a thread reads its TN row values as float4
+//   and one query value each of lo, hi and mask, and does TN gaps in
+//   registers. Ints below 2^24 convert to float exactly, so converting
+//   once per tile changes no value.
+// - The squared norms come from the same staged tiles, one thread a row.
+// - Blocks walk the query tiles fastest, so the query tiles of one row
+//   tile run side by side and read its rows from L2. Scores are written as
+//   float4 streaming stores.
 //
-// Batch invariance: every dot product, |q|^2 and |x|^2 is an fmaf chain
-// over k = 0 .. M-1 in order (zero padding past M depends on M alone), and
-// the penalty sums l = 0 .. L-1 in order, so each output depends only on M
-// and its own row pair, never on B, N or the tile it lands in.
+// Every output keeps its bits whatever the tile: every dot product, |q|^2
+// and |x|^2 is an fmaf chain over k = 0 .. M-1 in order (no padding enters
+// a chain), the epilogue is (qs + xs) - 2 * dot clamped at 0, and the
+// penalty sums l = 0 .. L-1 in order. So each output depends only on M and
+// its own row pair, never on B, N or the tile it lands in: the kernel is
+// batch-invariant bit for bit, and on integer-valued inputs it equals the
+// plain version bit for bit.
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBM = 64;  // queries per tile
-constexpr int kBN = 64;  // database rows per tile
-constexpr int kBK = 16;  // M chunk staged per step
+constexpr int kBK = 16;     // M chunk staged per step
+constexpr int kPad = 4;     // k-major row padding (keeps float4 alignment)
 constexpr int kThreads = 256;
+constexpr size_t kMaxSmem = 232448;  // 227 KB, what one block may use
 
-__device__ __forceinline__ void load4(const float* __restrict__ src, int rows,
-                                      int M, int r, int k, int vec, float v[4]) {
-  if (r < rows && vec && k < M) {  // M % 4 == 0 here, so k + 3 < M
-    const float4 t = __ldg(reinterpret_cast<const float4*>(src + (size_t)r * M + k));
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-    return;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <int BM, int BN, int TM, int TN>
+struct Tile {
+  static_assert(TM % 4 == 0 && TN % 4 == 0, "register tiles are float4 groups");
+  static_assert((BM / TM) * (BN / TN) == kThreads, "one output tile per thread");
+  static constexpr int kLdA = BM + kPad, kLdB = BN + kPad;
+  static constexpr int kStage = kBK * (kLdA + kLdB);  // floats a buffer
+  static constexpr int kNorms = (BM + BN + kThreads - 1) / kThreads;  // norms a thread
+  static constexpr int kRowStep = BM * 4 / TM;  // between a thread's float4 groups
+  static constexpr int kColStep = BN * 4 / TN;
+
+  static size_t smem_bytes(int stages, int L, int mode) {
+    return sizeof(float) * ((size_t)stages * kStage + BM + BN +
+                            (mode == 1 ? (size_t)L * (BN + 3 * BM) : 0));
   }
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    v[t] = (r < rows && k + t < M) ? __ldg(src + (size_t)r * M + k + t) : 0.f;
+};
+
+// dst[k * ld + r] <- src[(r0 + r) * M + k0 + k] for k < kc and the rows
+// that exist; thread tid copies elements tid, tid + kThreads, ...
+template <int R>
+__device__ __forceinline__ void stage_chunk(float* dst, int ld, const float* __restrict__ src,
+                                            int rows, int M, int r0, int k0, int kc, int tid) {
+  const int ne = min(R, rows - r0) * kc;
+  const float* base = src + (size_t)r0 * M + k0;
+  if (kc == kBK) {
+#pragma unroll 4
+    for (int e = tid; e < ne; e += kThreads) {
+      const int r = e >> 4, k = e & (kBK - 1);
+      cp_async4(dst + k * ld + r, base + (size_t)r * M + k);
+    }
+  } else {  // a short chunk: whole rows (M <= 16) or the ragged last chunk
+    for (int e = tid; e < ne; e += kThreads) {
+      const int r = e / kc, k = e - r * kc;
+      cp_async4(dst + k * ld + r, base + (size_t)r * M + k);
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads) fused_auto_kernel(
+// dst[l * R + r] <- float(src[(r0 + r) * L + l]): one coalesced pass over
+// the contiguous span of the tile's rows; 1 where src is null (no mask).
+template <int R>
+__device__ __forceinline__ void stage_attrs(float* dst, const int* __restrict__ src, int rows,
+                                            int L, int r0, int tid) {
+  const int ne = min(R, rows - r0) * L;
+  for (int e = tid; e < ne; e += kThreads) {
+    const int r = e / L, l = e - r * L;
+    dst[l * R + r] = src ? (float)__ldg(src + (size_t)r0 * L + e) : 1.f;
+  }
+}
+
+// One k of the chunk: the thread's norms and its TM x TN products.
+template <int BM, int BN, int TM, int TN>
+__device__ __forceinline__ void fma_step(const float* As, const float* Bs, int k, int tid,
+                                         int tx, int ty, float (&acc)[TM][TN],
+                                         float (&sq)[Tile<BM, BN, TM, TN>::kNorms]) {
+  using T = Tile<BM, BN, TM, TN>;
+  const float* a_row = As + k * T::kLdA;
+  const float* b_row = Bs + k * T::kLdB;
+#pragma unroll
+  for (int s = 0; s < T::kNorms; ++s) {
+    const int r = tid + s * kThreads;
+    if (r < BM) {
+      sq[s] = fmaf(a_row[r], a_row[r], sq[s]);
+    } else if (r < BM + BN) {
+      sq[s] = fmaf(b_row[r - BM], b_row[r - BM], sq[s]);
+    }
+  }
+  float a[TM], b[TN];
+#pragma unroll
+  for (int g = 0; g < TM / 4; ++g) {
+    const float4 v = *reinterpret_cast<const float4*>(a_row + g * T::kRowStep + ty * 4);
+    a[4 * g] = v.x; a[4 * g + 1] = v.y; a[4 * g + 2] = v.z; a[4 * g + 3] = v.w;
+  }
+#pragma unroll
+  for (int g = 0; g < TN / 4; ++g) {
+    const float4 v = *reinterpret_cast<const float4*>(b_row + g * T::kColStep + tx * 4);
+    b[4 * g] = v.x; b[4 * g + 1] = v.y; b[4 * g + 2] = v.z; b[4 * g + 3] = v.w;
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+}
+
+template <int BM, int BN, int TM, int TN>
+__global__ void __launch_bounds__(kThreads, 2) fused_auto_kernel(
     const float* __restrict__ qv, const float* __restrict__ xv,
     const int* __restrict__ qlo, const int* __restrict__ qhi,
     const int* __restrict__ mask, const int* __restrict__ xa,
     float* __restrict__ out, int B, int N, int M, int L, float inv_alpha,
-    int mode, int vec, int vec_out) {
-  __shared__ __align__(16) float As[kBK][kBM];  // query tile, k-major
-  __shared__ __align__(16) float Bs[kBK][kBN];  // database tile, k-major
-  __shared__ float qsq_s[kBM];
-  __shared__ float xsq_s[kBN];
+    int mode, int vec_out, int n_qtiles) {
+  using T = Tile<BM, BN, TM, TN>;
+  extern __shared__ __align__(16) float smem[];
+  const int stages = M > kBK ? 2 : 1;
+  float* qsq_s = smem + stages * T::kStage;
+  float* xsq_s = qsq_s + BM;
+  float* xa_s = xsq_s + BN;        // [L][BN]
+  float* lo_s = xa_s + L * BN;     // [L][BM]
+  float* hi_s = lo_s + L * BM;
+  float* mk_s = hi_s + L * BM;
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int b0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int lrow = tid >> 2, lk = (tid & 3) << 2;  // loader: row, k offset
+  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
+  const int b0 = (blockIdx.x % n_qtiles) * BM;
+  const int n0 = (blockIdx.x / n_qtiles) * BN;
+  const int n_chunks = (M + kBK - 1) / kBK;
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float sq = 0.f;  // tid < 64: |q|^2 of tile row tid; 64 <= tid < 128: |x|^2
+  stage_chunk<BM>(smem, T::kLdA, qv, B, M, b0, 0, min(kBK, M), tid);
+  stage_chunk<BN>(smem + kBK * T::kLdA, T::kLdB, xv, N, M, n0, 0, min(kBK, M), tid);
+  cp_async_commit();
+  if (mode == 1) {  // while chunk 0 is in flight
+    stage_attrs<BN>(xa_s, xa, N, L, n0, tid);
+    stage_attrs<BM>(lo_s, qlo, B, L, b0, tid);
+    stage_attrs<BM>(hi_s, qhi, B, L, b0, tid);
+    stage_attrs<BM>(mk_s, mask, B, L, b0, tid);
+  }
 
-  for (int k0 = 0; k0 < M; k0 += kBK) {
-    float a[4], x[4];
-    load4(qv, B, M, b0 + lrow, k0 + lk, vec, a);
-    load4(xv, N, M, n0 + lrow, k0 + lk, vec, x);
-    __syncthreads();  // the previous chunk has been consumed
+  float acc[TM][TN];
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      As[lk + t][lrow] = a[t];
-      Bs[lk + t][lrow] = x[t];
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  float sq[T::kNorms];
+#pragma unroll
+  for (int s = 0; s < T::kNorms; ++s) sq[s] = 0.f;
+
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait_all();
+    __syncthreads();  // chunk c has landed; chunk c - 1's buffer is free
+    const int k0 = c * kBK, kc = min(kBK, M - k0);
+    if (c + 1 < n_chunks) {
+      float* nxt = smem + ((c + 1) & 1) * T::kStage;
+      const int kn = min(kBK, M - k0 - kBK);
+      stage_chunk<BM>(nxt, T::kLdA, qv, B, M, b0, k0 + kBK, kn, tid);
+      stage_chunk<BN>(nxt + kBK * T::kLdA, T::kLdB, xv, N, M, n0, k0 + kBK, kn, tid);
+      cp_async_commit();
     }
-    __syncthreads();
-    if (tid < kBM) {
+    const float* As = smem + (c & 1) * T::kStage;
+    const float* Bs = As + kBK * T::kLdA;
+    if (kc == kBK) {
 #pragma unroll
-      for (int k = 0; k < kBK; ++k) sq = fmaf(As[k][tid], As[k][tid], sq);
-    } else if (tid < kBM + kBN) {
-#pragma unroll
-      for (int k = 0; k < kBK; ++k) sq = fmaf(Bs[k][tid - kBM], Bs[k][tid - kBM], sq);
-    }
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+      for (int k = 0; k < kBK; ++k) fma_step<BM, BN, TM, TN>(As, Bs, k, tid, tx, ty, acc, sq);
+    } else {
+      for (int k = 0; k < kc; ++k) fma_step<BM, BN, TM, TN>(As, Bs, k, tid, tx, ty, acc, sq);
     }
   }
-  if (tid < kBM) {
-    qsq_s[tid] = sq;
-  } else if (tid < kBM + kBN) {
-    xsq_s[tid - kBM] = sq;
+#pragma unroll
+  for (int s = 0; s < T::kNorms; ++s) {
+    const int r = tid + s * kThreads;
+    if (r < BM) {
+      qsq_s[r] = sq[s];
+    } else if (r < BM + BN) {
+      xsq_s[r - BM] = sq[s];
+    }
   }
   __syncthreads();
 
+  float xs[TN];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int b = b0 + ty * 4 + i;
+  for (int g = 0; g < TN / 4; ++g) {
+    const float4 v = *reinterpret_cast<const float4*>(xsq_s + g * T::kColStep + tx * 4);
+    xs[4 * g] = v.x; xs[4 * g + 1] = v.y; xs[4 * g + 2] = v.z; xs[4 * g + 3] = v.w;
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = (i >> 2) * T::kRowStep + ty * 4 + (i & 3);
+    const int b = b0 + r;
     if (b >= B) continue;
-    const float qs = qsq_s[ty * 4 + i];
-    const size_t qo = (size_t)b * L;
-    float res[4];
+    const float qs = qsq_s[r];
+    float res[TN];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      float sv2 = fmaxf((qs + xsq_s[tx * 4 + j]) - 2.f * acc[i][j], 0.f);
-      if (mode == 1 && n < N) {
-        const int* arow = xa + (size_t)n * L;
-        float sa = 0.f;
-        for (int l = 0; l < L; ++l) {
-          const float af = (float)__ldg(arow + l);
-          const float gap =
-              fmaxf(fmaxf((float)__ldg(qlo + qo + l) - af, af - (float)__ldg(qhi + qo + l)), 0.f);
-          sa += gap * (mask ? (float)__ldg(mask + qo + l) : 1.f);
+    for (int j = 0; j < TN; ++j) res[j] = fmaxf((qs + xs[j]) - 2.f * acc[i][j], 0.f);
+    if (mode == 1) {
+      float sa[TN];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) sa[j] = 0.f;
+      for (int l = 0; l < L; ++l) {
+        const float lo = lo_s[l * BM + r], hi = hi_s[l * BM + r], mk = mk_s[l * BM + r];
+        const float* arow = xa_s + l * BN;
+#pragma unroll
+        for (int g = 0; g < TN / 4; ++g) {
+          const float4 v = *reinterpret_cast<const float4*>(arow + g * T::kColStep + tx * 4);
+          const float av[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const float gap = fmaxf(fmaxf(lo - av[t], av[t] - hi), 0.f);
+            sa[4 * g + t] += gap * mk;
+          }
         }
-        const float pen = __fadd_rn(1.f, __fmul_rn(sa, inv_alpha));
-        sv2 = __fmul_rn(__fmul_rn(sv2, pen), pen);
       }
-      res[j] = sv2;
-    }
-    const int n = n0 + tx * 4;
-    float* dst = out + (size_t)b * N + n;
-    if (vec_out && n + 3 < N) {
-      *reinterpret_cast<float4*>(dst) = make_float4(res[0], res[1], res[2], res[3]);
-    } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (n + j < N) dst[j] = res[j];
+      for (int j = 0; j < TN; ++j) {
+        const float pen = __fadd_rn(1.f, __fmul_rn(sa[j], inv_alpha));
+        res[j] = __fmul_rn(__fmul_rn(res[j], pen), pen);
+      }
+    }
+    float* row = out + (size_t)b * N;
+#pragma unroll
+    for (int g = 0; g < TN / 4; ++g) {
+      const int n = n0 + g * T::kColStep + tx * 4;
+      if (vec_out && n + 3 < N) {
+        __stcs(reinterpret_cast<float4*>(row + n),
+               make_float4(res[4 * g], res[4 * g + 1], res[4 * g + 2], res[4 * g + 3]));
+      } else {
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          if (n + t < N) __stcs(row + n + t, res[4 * g + t]);
+      }
     }
   }
 }
 
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+template <int BM, int BN, int TM, int TN>
+int launch_tile(const float* qv, const float* xv, const int* qlo, const int* qhi,
+                const int* mask, const int* xa, float* out, int B, int N, int M, int L,
+                float inv_alpha, int mode, int vec_out, cudaStream_t stream) {
+  using T = Tile<BM, BN, TM, TN>;
+  const int n_qtiles = (B + BM - 1) / BM;
+  const long long blocks = (long long)n_qtiles * ((N + BN - 1) / BN);
+  const size_t smem = T::smem_bytes(M > kBK ? 2 : 1, L, mode);
+  if (blocks > INT_MAX || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kernel = fused_auto_kernel<BM, BN, TM, TN>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+      qv, xv, qlo, qhi, mask, xa, out, B, N, M, L, inv_alpha, mode, vec_out, n_qtiles);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -172,13 +336,15 @@ extern "C" int fused_auto_launch(const void* qv, const void* xv,
                                  int B, int N, int M, int L, float inv_alpha,
                                  int mode, void* stream) {
   if (B <= 0 || N <= 0) return 0;
-  const dim3 grid((N + kBN - 1) / kBN, (B + kBM - 1) / kBM);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  const int vec = (M % 4 == 0) && aligned16(qv) && aligned16(xv);
-  const int vec_out = (N % 4 == 0) && aligned16(out);
-  fused_auto_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)qv, (const float*)xv, (const int*)qlo, (const int*)qhi,
-      (const int*)mask, (const int*)xa, (float*)out, B, N, M, L, inv_alpha, mode,
-      vec, vec_out);
-  return (int)cudaGetLastError();
+  const int vec_out = (N % 4 == 0) && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  const auto s = (cudaStream_t)stream;
+  const auto q = (const float*)qv;
+  const auto x = (const float*)xv;
+  const auto lo = (const int*)qlo;
+  const auto hi = (const int*)qhi;
+  const auto mk = (const int*)mask;
+  const auto a = (const int*)xa;
+  const auto o = (float*)out;
+  return launch_tile<64, 64, 4, 4>(q, x, lo, hi, mk, a, o, B, N, M, L, inv_alpha, mode,
+                                   vec_out, s);
 }

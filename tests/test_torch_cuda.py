@@ -99,6 +99,33 @@ def test_kernels_batch_invariant_bitwise(cuda_dev, mode):
         assert torch.equal(one_g[0], full_g[r]) and torch.equal(one_f[0], full_f[r])
 
 
+@pytest.mark.parametrize("l", [1, 4, 5, 9])
+@pytest.mark.parametrize("m", [10, 100, 128, 130])
+@pytest.mark.parametrize("n", [1003, 20011])
+@pytest.mark.parametrize("b", [1, 15, 16, 17, 63, 64, 65, 130])
+def test_fused_auto_tiles_exact_on_integer_data(cuda_dev, b, n, m, l):
+    """Every tile of the kernel (B <= 16, <= 64, wider) and every chunking of
+    M (whole rows, full and ragged chunks) equals the plain version bit for
+    bit on integer-valued data, and a batch's rows equal the same rows
+    scored by another tile (a single-row call, the first 17 rows)."""
+    g = torch.Generator().manual_seed(b * 1000 + n + m + l)
+    qv = torch.randint(-20, 21, (b, m), generator=g).float().to(cuda_dev)
+    xv = torch.randint(-20, 21, (n, m), generator=g).float().to(cuda_dev)
+    qa = torch.randint(0, 4, (b, l), generator=g, dtype=torch.int32).to(cuda_dev)
+    xa = torch.randint(0, 4, (n, l), generator=g, dtype=torch.int32).to(cuda_dev)
+    other = torch.randint(0, 4, (b, l), generator=g, dtype=torch.int32).to(cuda_dev)
+    iv = torch.stack([torch.minimum(qa, other), torch.maximum(qa, other)], -1).contiguous()
+    mask = torch.randint(0, 2, (b, l), generator=g, dtype=torch.int32).to(cuda_dev)
+    for qt, mk in ((qa, None), (iv, None), (qa, mask)):
+        for mode in ("auto", "l2"):
+            full = fused_auto(qv, qt, xv, xa, ALPHA, mode, mk)
+            assert torch.equal(full, fused_auto_ref(qv, qt, xv, xa, ALPHA, mode, mk))
+            for rows in (slice(0, 1), slice(b - 1, b), slice(0, min(b, 17))):
+                part = fused_auto(qv[rows].contiguous(), qt[rows].contiguous(), xv, xa, ALPHA,
+                                  mode, None if mk is None else mk[rows].contiguous())
+                assert torch.equal(part, full[rows])
+
+
 def test_search_on_card_equals_cpu_on_integer_data(cuda_dev):
     ds = make_hybrid_dataset(n=3000, n_queries=32, profile="sift", n_clusters=8,
                              attr_cluster_corr=0.6, seed=1)

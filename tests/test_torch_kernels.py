@@ -149,7 +149,12 @@ class TestGatherAuto:
 class TestFusedAuto:
     @pytest.mark.parametrize("mode", MODES)
     @pytest.mark.parametrize("kind", TARGETS)
-    @pytest.mark.parametrize("b,n,m,l", [(4, 64, 32, 5), (9, 300, 96, 3), (1, 1, 8, 1)])
+    @pytest.mark.parametrize("b,n,m,l", [
+        (4, 64, 32, 5), (9, 300, 96, 3), (1, 1, 8, 1),
+        # the CUDA kernel's narrow, middle and wide tiles; whole-row chunks
+        # (M <= 16) and a ragged last chunk (M = 130)
+        (1, 200, 10, 4), (17, 300, 10, 4), (65, 300, 130, 9),
+    ])
     def test_matches_pallas_and_brute_twin(self, b, n, m, l, kind, mode):
         qv, xv, qa, xa, iv, mask = make_inputs(b, n, m, l, seed=b * 7 + n)
         qa_t, mk = targets(kind, qa, iv, mask)
