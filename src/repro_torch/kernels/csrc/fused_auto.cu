@@ -345,6 +345,9 @@ extern "C" int fused_auto_launch(const void* qv, const void* xv,
   const auto mk = (const int*)mask;
   const auto a = (const int*)xa;
   const auto o = (float*)out;
+  if (B <= 16)
+    return launch_tile<16, 256, 4, 4>(q, x, lo, hi, mk, a, o, B, N, M, L, inv_alpha, mode,
+                                      vec_out, s);
   if (B <= 64)
     return launch_tile<64, 64, 4, 4>(q, x, lo, hi, mk, a, o, B, N, M, L, inv_alpha, mode,
                                      vec_out, s);
