@@ -37,7 +37,8 @@
 //   B <= 16:      16 x 256 outputs a block, a 4 x 4 register tile a thread
 //                 (narrow: one block covers 256 rows, so a block's loads,
 //                 rows and attributes together, are issued at once and one
-//                 DRAM latency is exposed per block, not one per phase);
+//                 DRAM latency is exposed per block, not one per phase;
+//                 capped at 64 registers, so four blocks an SM);
 //   B <= 64:      64 x 64, 4 x 4 a thread;
 //   otherwise:    128 x 128, 8 x 8 a thread (64 FFMA per 4 shared float4
 //                 loads), two blocks an SM.
@@ -50,9 +51,10 @@
 //   (A 16-byte copy would land four k of one row side by side and need a
 //   transpose pass through registers; the 4-byte copies take fewer
 //   instructions than that pass, and need no alignment, so there is one
-//   path for every M.) Consecutive threads copy consecutive addresses:
-//   when a chunk holds whole rows (M <= 16, e.g. M = 10) the block's tile
-//   is one contiguous span of rows * M floats, read end to end.
+//   path for every M.) A full chunk is copied in 64-byte row pieces, 16
+//   threads a row. When a chunk holds whole rows (M <= 16, e.g. M = 10)
+//   the block's tile is one contiguous span of rows * M floats: a thread
+//   copies its own row, and the span's bytes leave DRAM once, through L1.
 // - The attribute operands of the tile (xa's BN x L, and BM x L each of
 //   qlo, qhi and mask) are read once, coalesced, converted to float once
 //   and kept l-major in dynamic shared memory sized by L, while the first
@@ -61,7 +63,9 @@
 //   and one query value each of lo, hi and mask, and does TN gaps in
 //   registers. Ints below 2^24 convert to float exactly, so converting
 //   once per tile changes no value.
-// - The squared norms come from the same staged tiles, one thread a row.
+// - The squared norms come from the same staged tiles, one thread a row,
+//   in a loop of their own before each chunk's FFMA loop (kept out of the
+//   unrolled product loop, whose schedule they disturbed).
 // - Blocks walk the query tiles fastest, so the query tiles of one row
 //   tile run side by side and read its rows from L2. Scores are written as
 //   float4 streaming stores.
@@ -114,35 +118,40 @@ struct Tile {
 };
 
 // dst[k * ld + r] <- src[(r0 + r) * M + k0 + k] for k < kc and the rows
-// that exist; thread tid copies elements tid, tid + kThreads, ...
+// that exist. A full chunk: thread tid copies k = tid % 16 of every 16th
+// row, so a warp reads two 64-byte row pieces. A short chunk (whole rows
+// when M < 16, or the ragged last chunk): a thread copies its own rows k
+// by k; a warp's first copy brings its rows' sectors into L1 (cp.async.ca)
+// and the next ones read them there, so each byte leaves DRAM once.
 template <int R>
 __device__ __forceinline__ void stage_chunk(float* dst, int ld, const float* __restrict__ src,
                                             int rows, int M, int r0, int k0, int kc, int tid) {
-  const int ne = min(R, rows - r0) * kc;
+  const int nr = min(R, rows - r0);
   const float* base = src + (size_t)r0 * M + k0;
   if (kc == kBK) {
-#pragma unroll 4
-    for (int e = tid; e < ne; e += kThreads) {
-      const int r = e >> 4, k = e & (kBK - 1);
+    constexpr int kStep = kThreads / kBK;  // rows a pass
+    const int k = tid % kBK;
+    for (int r = tid / kBK; r < nr; r += kStep) {
       cp_async4(dst + k * ld + r, base + (size_t)r * M + k);
     }
-  } else {  // a short chunk: whole rows (M <= 16) or the ragged last chunk
-    for (int e = tid; e < ne; e += kThreads) {
-      const int r = e / kc, k = e - r * kc;
-      cp_async4(dst + k * ld + r, base + (size_t)r * M + k);
+  } else {
+    for (int r = tid; r < nr; r += kThreads) {
+      const float* row = base + (size_t)r * M;
+      for (int k = 0; k < kc; ++k) cp_async4(dst + k * ld + r, row + k);
     }
   }
 }
 
-// dst[l * R + r] <- float(src[(r0 + r) * L + l]): one coalesced pass over
-// the contiguous span of the tile's rows; 1 where src is null (no mask).
+// dst[l * R + r] <- float(src[(r0 + r) * L + l]) for the rows that exist,
+// a thread a row (the row's bytes come through L1 once); 1 where src is
+// null (no mask).
 template <int R>
 __device__ __forceinline__ void stage_attrs(float* dst, const int* __restrict__ src, int rows,
                                             int L, int r0, int tid) {
-  const int ne = min(R, rows - r0) * L;
-  for (int e = tid; e < ne; e += kThreads) {
-    const int r = e / L, l = e - r * L;
-    dst[l * R + r] = src ? (float)__ldg(src + (size_t)r0 * L + e) : 1.f;
+  const int nr = min(R, rows - r0);
+  for (int r = tid; r < nr; r += kThreads) {
+    const int* row = src ? src + (size_t)(r0 + r) * L : nullptr;
+    for (int l = 0; l < L; ++l) dst[l * R + r] = row ? (float)__ldg(row + l) : 1.f;
   }
 }
 
@@ -154,15 +163,6 @@ __device__ __forceinline__ void fma_step(const float* As, const float* Bs, int k
   using T = Tile<BM, BN, TM, TN>;
   const float* a_row = As + k * T::kLdA;
   const float* b_row = Bs + k * T::kLdB;
-#pragma unroll
-  for (int s = 0; s < T::kNorms; ++s) {
-    const int r = tid + s * kThreads;
-    if (r < BM) {
-      sq[s] = fmaf(a_row[r], a_row[r], sq[s]);
-    } else if (r < BM + BN) {
-      sq[s] = fmaf(b_row[r - BM], b_row[r - BM], sq[s]);
-    }
-  }
   float a[TM], b[TN];
 #pragma unroll
   for (int g = 0; g < TM / 4; ++g) {
@@ -181,7 +181,7 @@ __device__ __forceinline__ void fma_step(const float* As, const float* Bs, int k
 }
 
 template <int BM, int BN, int TM, int TN>
-__global__ void __launch_bounds__(kThreads, 2) fused_auto_kernel(
+__global__ void __launch_bounds__(kThreads, BM <= 16 ? 4 : 2) fused_auto_kernel(
     const float* __restrict__ qv, const float* __restrict__ xv,
     const int* __restrict__ qlo, const int* __restrict__ qhi,
     const int* __restrict__ mask, const int* __restrict__ xa,
@@ -203,14 +203,17 @@ __global__ void __launch_bounds__(kThreads, 2) fused_auto_kernel(
   const int n0 = (blockIdx.x / n_qtiles) * BN;
   const int n_chunks = (M + kBK - 1) / kBK;
 
+  // Each operand starts at another thread, so the row-a-thread copies of
+  // short chunks and attributes spread over the block.
+  const int tid_x = (tid + BM) % kThreads;
   stage_chunk<BM>(smem, T::kLdA, qv, B, M, b0, 0, min(kBK, M), tid);
-  stage_chunk<BN>(smem + kBK * T::kLdA, T::kLdB, xv, N, M, n0, 0, min(kBK, M), tid);
+  stage_chunk<BN>(smem + kBK * T::kLdA, T::kLdB, xv, N, M, n0, 0, min(kBK, M), tid_x);
   cp_async_commit();
   if (mode == 1) {  // while chunk 0 is in flight
-    stage_attrs<BN>(xa_s, xa, N, L, n0, tid);
     stage_attrs<BM>(lo_s, qlo, B, L, b0, tid);
-    stage_attrs<BM>(hi_s, qhi, B, L, b0, tid);
-    stage_attrs<BM>(mk_s, mask, B, L, b0, tid);
+    stage_attrs<BM>(hi_s, qhi, B, L, b0, tid_x);
+    stage_attrs<BM>(mk_s, mask, B, L, b0, (tid + 2 * BM) % kThreads);
+    stage_attrs<BN>(xa_s, xa, N, L, n0, (tid + 3 * BM) % kThreads);
   }
 
   float acc[TM][TN];
@@ -230,11 +233,21 @@ __global__ void __launch_bounds__(kThreads, 2) fused_auto_kernel(
       float* nxt = smem + ((c + 1) & 1) * T::kStage;
       const int kn = min(kBK, M - k0 - kBK);
       stage_chunk<BM>(nxt, T::kLdA, qv, B, M, b0, k0 + kBK, kn, tid);
-      stage_chunk<BN>(nxt + kBK * T::kLdA, T::kLdB, xv, N, M, n0, k0 + kBK, kn, tid);
+      stage_chunk<BN>(nxt + kBK * T::kLdA, T::kLdB, xv, N, M, n0, k0 + kBK, kn, tid_x);
       cp_async_commit();
     }
     const float* As = smem + (c & 1) * T::kStage;
     const float* Bs = As + kBK * T::kLdA;
+#pragma unroll
+    for (int s = 0; s < T::kNorms; ++s) {
+      const int r = tid + s * kThreads;
+      if (r < BM) {
+        for (int k = 0; k < kc; ++k) sq[s] = fmaf(As[k * T::kLdA + r], As[k * T::kLdA + r], sq[s]);
+      } else if (r < BM + BN) {
+        const int rx = r - BM;
+        for (int k = 0; k < kc; ++k) sq[s] = fmaf(Bs[k * T::kLdB + rx], Bs[k * T::kLdB + rx], sq[s]);
+      }
+    }
     if (kc == kBK) {
 #pragma unroll
       for (int k = 0; k < kBK; ++k) fma_step<BM, BN, TM, TN>(As, Bs, k, tid, tx, ty, acc, sq);
