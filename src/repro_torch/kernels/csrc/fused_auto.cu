@@ -30,8 +30,9 @@
 //   break parity with the oracle.
 // - recsys retrieval, M = 10, L = 4: bytes bound it. At B = 512 the 2 GB
 //   of (B, N) scores written; at B = 1 the 56 MB of rows and attributes
-//   read. At these widths the penalty (5 operations per attribute per
-//   output) costs more than the 10 FFMA of the dot product.
+//   read. At these widths the penalty (2 operations per attribute per
+//   output for point targets, 5 for intervals) costs as much as the 10
+//   FFMA of the dot product.
 //
 // Design: one template, three tiles, picked by the launcher from B alone:
 //   B <= 16:      16 x 256 outputs a block, a 4 x 4 register tile a thread
@@ -62,7 +63,8 @@
 //   memory: per row of its tile a thread reads its TN row values as float4
 //   and one query value each of lo, hi and mask, and does TN gaps in
 //   registers. Ints below 2^24 convert to float exactly, so converting
-//   once per tile changes no value.
+//   once per tile changes no value. Point targets take the gap as
+//   |a - q| (see penalty_sums), the same bits in fewer operations.
 // - The squared norms come from the same staged tiles, one thread a row,
 //   in a loop of their own before each chunk's FFMA loop (kept out of the
 //   unrolled product loop, whose schedule they disturbed).
@@ -155,11 +157,10 @@ __device__ __forceinline__ void stage_attrs(float* dst, const int* __restrict__ 
   }
 }
 
-// One k of the chunk: the thread's norms and its TM x TN products.
+// One k of the chunk: the thread's TM x TN products.
 template <int BM, int BN, int TM, int TN>
-__device__ __forceinline__ void fma_step(const float* As, const float* Bs, int k, int tid,
-                                         int tx, int ty, float (&acc)[TM][TN],
-                                         float (&sq)[Tile<BM, BN, TM, TN>::kNorms]) {
+__device__ __forceinline__ void fma_step(const float* As, const float* Bs, int k, int tx, int ty,
+                                         float (&acc)[TM][TN]) {
   using T = Tile<BM, BN, TM, TN>;
   const float* a_row = As + k * T::kLdA;
   const float* b_row = Bs + k * T::kLdB;
@@ -275,9 +276,9 @@ __global__ void __launch_bounds__(kThreads, BM <= 16 ? 4 : 2) fused_auto_kernel(
     }
     if (kc == kBK) {
 #pragma unroll
-      for (int k = 0; k < kBK; ++k) fma_step<BM, BN, TM, TN>(As, Bs, k, tid, tx, ty, acc, sq);
+      for (int k = 0; k < kBK; ++k) fma_step<BM, BN, TM, TN>(As, Bs, k, tx, ty, acc);
     } else {
-      for (int k = 0; k < kc; ++k) fma_step<BM, BN, TM, TN>(As, Bs, k, tid, tx, ty, acc, sq);
+      for (int k = 0; k < kc; ++k) fma_step<BM, BN, TM, TN>(As, Bs, k, tx, ty, acc);
     }
   }
 #pragma unroll
