@@ -14,10 +14,12 @@ Phases:
      block (B=2048, C=520), fused_auto at (B=128, N) - point, interval and
      masked targets, auto and l2 modes - against their plain versions, with
      a bitwise batch-invariance check and CUDA-event timings of each mode;
-     fused_auto on integer-valued operands bit for bit against its plain
-     version at B in {1, 16, 17, 128, 512} and M in {10, 128} (each tile of
-     the kernel), and rows of B=128 and B=512 batches against single-row
-     calls bit for bit; adc_scan
+     fused_auto timed in both modes at B=32 and B=64 (its narrow and middle
+     tiles); fused_auto on integer-valued operands bit for bit against its
+     plain version at B in {1, 16, 17, 48, 49, 64, 65, 128, 512} and M in
+     {10, 128} (each tile of the kernel on both sides of its bounds), and
+     rows of B=128 and B=512 batches against single-row calls bit for bit;
+     adc_scan
      (K=256) and adc_scan4 (K=16) at (B=128, N, S=64), bit for bit against
      their plain versions, batch-invariant, adc_scan4 on packed codes equal
      to adc_scan on the same codes unpacked, plus a small odd-S case
@@ -85,9 +87,14 @@ GATHER_RTOL = 1e-5
 FUSED_RTOL_NORMS, FUSED_ATOL = 1e-5, 1e-6
 MATCH_RECALL_FLOOR = 0.5
 #: fused_auto's tiles and load paths: batches on both sides of each tile's
-#: bound (16 and 64 queries), the retrieval and oracle widths, and a row
-#: count that is not a multiple of 4 (scalar stores) beside one that is
-FUSED_EXACT_BATCHES, FUSED_EXACT_WIDTHS = (1, 16, 17, 128, 512), (10, 128)
+#: bound (48 and 64 queries) and of the narrow tile's first query tile
+#: (16), the retrieval and oracle widths, and a row count that is not a
+#: multiple of 4 (scalar stores) beside one that is
+FUSED_EXACT_BATCHES = (1, 16, 17, 48, 49, 64, 65, 128, 512)
+FUSED_EXACT_WIDTHS = (10, 128)
+#: fused_auto's narrow and middle tiles timed at the oracle width, each at
+#: a batch it serves (16 x 256 at B = 32, 64 x 64 at B = 64)
+FUSED_TILE_BATCHES = (32, 64)
 FUSED_EXACT_ROWS = (65_536, 65_539)
 #: ADC subspaces: the pq_subspaces of the repo's quant sweep
 #: (benchmarks/paper_benchmarks.py:360); 2 dims each at M = 128.
@@ -301,13 +308,24 @@ def check_kernels(dev, ds, alpha: float, seed: int) -> dict:
         f"{2 * b * n * m / ms / 1e9:.2f} TFLOP/s")
     log(f"  fused_auto  B={b} N={n} M={m} auto: kernel {auto_ms:.4f} ms (device "
         f"{auto_dev_ms:.4f} ms): the epilogue's penalty costs {auto_dev_ms - dev_ms:.4f} ms")
+    tiles = {}
+    for bt in FUSED_TILE_BATCHES:
+        qv_t, qa_t = qv[:bt].contiguous(), qa[:bt].contiguous()
+        tiles[bt] = {f"{md}_device_ms": device_ms(
+            lambda md=md: fused_auto(qv_t, qa_t, db_v, db_a, alpha, md))
+            for md in ("l2", "auto")}
+        t_bytes = (bt * m + n * m + n * l + bt * l * 2) * 4 + bt * n * 4
+        t_ops = 2 * bt * n * m + 2 * (bt + n) * m + 4 * bt * n
+        tiles[bt]["bound_ms"] = max(t_bytes / PEAK_BYTES_PER_S, t_ops / PEAK_F32_FLOPS) * 1e3
+        log(f"  fused_auto  B={bt} N={n} M={m}: device l2 {tiles[bt]['l2_device_ms']:.4f} ms, "
+            f"auto {tiles[bt]['auto_device_ms']:.4f} ms, bound {tiles[bt]['bound_ms']:.4f} ms")
     log(f"  fused_auto: max|err| {max_err:.3e} (tol (1e-5·(|q|²+|x|²)+1e-6)·pen² + 1e-6·|ref|), "
         f"batch-invariant bitwise: {invariant}")
     report["fused_auto"] = dict(
         max_abs_err=max_err, worst_err_over_tol=worst_ratio, bitwise_batch_invariant=invariant,
         shape=f"B=128 N={n} M=128 L=5 (brute oracle)", ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-        auto_ms=auto_ms, auto_device_ms=auto_dev_ms,
+        auto_ms=auto_ms, auto_device_ms=auto_dev_ms, tiles=tiles,
     )
     del db_v, db_a, qsq, xsq
     torch.cuda.empty_cache()
@@ -1138,7 +1156,7 @@ def main(argv=None) -> int:
          "worst_err_over_tol": kern[name]["worst_err_over_tol"],
          "bitwise_batch_invariant": kern[name]["bitwise_batch_invariant"],
          **{k: kern[name][k] for k in ("serve_p99", "retrieval", "auto_ms", "auto_device_ms",
-                                       "fused_auto_exact_cases",
+                                       "tiles", "fused_auto_exact_cases",
                                        "fused_auto_rows_equal_single_calls") if k in kern[name]}}
         for name, (src, rep) in sources.items()
     ]}

@@ -34,7 +34,10 @@ def split_targets(qa: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Normalize (B, L) point / (B, L, 2) interval targets to (qlo, qhi).
 
     Point targets duplicate into a degenerate lo = hi pair: the interval
-    gap max(lo − a, a − hi, 0) is then bit-identical to |a − q|.
+    gap max(lo − a, a − hi, 0) is then bit-identical to |a − q|. They come
+    back as the same tensor twice, and fused_auto's kernel reads one
+    buffer passed as both bounds (``qlo == qhi``) as point targets, whose
+    gap it takes in 2 operations instead of 5.
     """
     if qa.ndim == 3:
         if qa.shape[-1] != 2:

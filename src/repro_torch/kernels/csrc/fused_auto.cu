@@ -35,7 +35,7 @@
 //   FFMA of the dot product.
 //
 // Design: one template, three tiles, picked by the launcher from B alone:
-//   B <= 16:      16 x 256 outputs a block, a 4 x 4 register tile a thread
+//   B <= 48:      16 x 256 outputs a block, a 4 x 4 register tile a thread
 //                 (narrow: one block covers 256 rows, so a block's loads,
 //                 rows and attributes together, are issued at once and one
 //                 DRAM latency is exposed per block, not one per phase;
@@ -43,6 +43,12 @@
 //   B <= 64:      64 x 64, 4 x 4 a thread;
 //   otherwise:    128 x 128, 8 x 8 a thread (64 FFMA per 4 shared float4
 //                 loads), two blocks an SM.
+// The bounds 48 and 64 come from kernels/fused_auto/tile_sweep.py, which
+// times every tile at B = 1 .. 128, N = 1M, M = 10 and 128: 16 x 256 is the
+// fastest up to B = 32 at both widths, and at B = 48, with three query
+// tiles, it ties 64 x 64 at M = 128 and wins at M = 10; 64 x 64 is the
+// fastest at B = 64; 128 x 128 from B = 65 on, where 64 x 64 would need
+// two query tiles.
 // Each has 256 threads.
 // - Feature tiles go through shared memory k-major, in chunks of 16 along
 //   M, with two buffers when M > 16: the next chunk's copies are in flight
@@ -59,7 +65,10 @@
 // - The attribute operands of the tile (xa's BN x L, and BM x L each of
 //   qlo, qhi and mask) are read once, coalesced, converted to float once
 //   and kept l-major in dynamic shared memory sized by L, while the first
-//   chunk's copies are in flight. The epilogue's l loop then reads shared
+//   chunk's copies are in flight. They take L * (BN + 3 * BM) floats, so
+//   auto mode takes at most kMaxAttrs = 96 attributes, what the 128 x 128
+//   tile fits beside two feature buffers in 227 KB (the wrapper raises
+//   above it; l2 mode stages none and takes any L). The epilogue's l loop then reads shared
 //   memory: per row of its tile a thread reads its TN row values as float4
 //   and one query value each of lo, hi and mask, and does TN gaps in
 //   registers. Ints below 2^24 convert to float exactly, so converting
@@ -89,6 +98,7 @@ constexpr int kBK = 16;     // M chunk staged per step
 constexpr int kPad = 4;     // k-major row padding (keeps float4 alignment)
 constexpr int kThreads = 256;
 constexpr size_t kMaxSmem = 232448;  // 227 KB, what one block may use
+constexpr int kMaxAttrs = 96;        // L in auto mode (kernels/fused_auto/ops.py MAX_ATTRS)
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -113,7 +123,7 @@ struct Tile {
   static constexpr int kRowStep = BM * 4 / TM;  // between a thread's float4 groups
   static constexpr int kColStep = BN * 4 / TN;
 
-  static size_t smem_bytes(int stages, int L, int mode) {
+  static constexpr size_t smem_bytes(int stages, int L, int mode) {
     return sizeof(float) * ((size_t)stages * kStage + BM + BN +
                             (mode == 1 ? (size_t)L * (BN + 3 * BM) : 0));
   }
@@ -358,6 +368,12 @@ int launch_tile(const float* qv, const float* xv, const int* qlo, const int* qhi
   return (int)cudaGetLastError();
 }
 
+static_assert(Tile<16, 256, 4, 4>::smem_bytes(2, kMaxAttrs, 1) <= kMaxSmem,
+              "16 x 256 at kMaxAttrs");
+static_assert(Tile<64, 64, 4, 4>::smem_bytes(2, kMaxAttrs, 1) <= kMaxSmem, "64 x 64 at kMaxAttrs");
+static_assert(Tile<128, 128, 8, 8>::smem_bytes(2, kMaxAttrs, 1) <= kMaxSmem,
+              "128 x 128 at kMaxAttrs");
+
 }  // namespace
 
 extern "C" int fused_auto_launch(const void* qv, const void* xv,
@@ -366,6 +382,7 @@ extern "C" int fused_auto_launch(const void* qv, const void* xv,
                                  int B, int N, int M, int L, float inv_alpha,
                                  int mode, void* stream) {
   if (B <= 0 || N <= 0) return 0;
+  if (mode == 1 && L > kMaxAttrs) return (int)cudaErrorInvalidValue;
   const int vec_out = (N % 4 == 0) && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
   const auto s = (cudaStream_t)stream;
   const auto q = (const float*)qv;
@@ -375,7 +392,7 @@ extern "C" int fused_auto_launch(const void* qv, const void* xv,
   const auto mk = (const int*)mask;
   const auto a = (const int*)xa;
   const auto o = (float*)out;
-  if (B <= 16)
+  if (B <= 48)
     return launch_tile<16, 256, 4, 4>(q, x, lo, hi, mk, a, o, B, N, M, L, inv_alpha, mode,
                                       vec_out, s);
   if (B <= 64)

@@ -14,6 +14,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.common import check_operands, inv_alpha, mode_code, split_targets
 from repro_torch.kernels.fused_auto.ref import fused_auto_ref
 
+#: Most attributes the kernel takes in auto mode: it stages a tile's
+#: attribute operands in shared memory (``kMaxAttrs`` in fused_auto.cu).
+MAX_ATTRS = 96
+
 
 def fused_auto(
     qv: torch.Tensor,
@@ -43,7 +47,13 @@ def fused_auto(
         return fused_auto_ref(qv, qa, xv, xa, alpha, mode, mask)
     if device.type != "cuda":
         raise ValueError(f"fused_auto: unsupported device {device}")
-    qlo, qhi = (t.contiguous() for t in split_targets(qa))
+    if mode == "auto" and l > MAX_ATTRS:
+        raise ValueError(
+            f"fused_auto: the kernel takes at most {MAX_ATTRS} attributes in auto mode, got {l}"
+        )
+    qlo, qhi = split_targets(qa)
+    if qlo is not qhi:  # intervals; point targets stay one buffer, read as such
+        qlo, qhi = qlo.contiguous(), qhi.contiguous()
     out = torch.empty((b, n), dtype=torch.float32, device=device)
     launch = build.launcher("fused_auto")
     with torch.cuda.device(device):
@@ -60,4 +70,4 @@ def fused_auto(
 
 fused_auto.launches = 0
 
-__all__ = ["fused_auto", "fused_auto_ref"]
+__all__ = ["MAX_ATTRS", "fused_auto", "fused_auto_ref"]

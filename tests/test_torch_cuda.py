@@ -26,7 +26,7 @@ from repro_torch.kernels.adc_scan.ops import (  # noqa: E402
     adc_scan4_ref, adc_scan4_scores, adc_scan_ref, adc_scan_scores,
 )
 from repro_torch.kernels.fm_interaction.ops import fm_interaction, fm_interaction_ref  # noqa: E402
-from repro_torch.kernels.fused_auto.ops import fused_auto, fused_auto_ref  # noqa: E402
+from repro_torch.kernels.fused_auto.ops import MAX_ATTRS, fused_auto, fused_auto_ref  # noqa: E402
 from repro_torch.kernels.gather_auto.ops import gather_auto, gather_auto_ref  # noqa: E402
 from repro_torch.kernels.gather_auto.ref import penalty_sa  # noqa: E402
 from repro_torch.models import recsys  # noqa: E402
@@ -102,12 +102,12 @@ def test_kernels_batch_invariant_bitwise(cuda_dev, mode):
 @pytest.mark.parametrize("l", [1, 4, 5, 9])
 @pytest.mark.parametrize("m", [10, 100, 128, 130])
 @pytest.mark.parametrize("n", [1003, 20011])
-@pytest.mark.parametrize("b", [1, 15, 16, 17, 63, 64, 65, 130])
+@pytest.mark.parametrize("b", [1, 15, 16, 17, 48, 49, 63, 64, 65, 130])
 def test_fused_auto_tiles_exact_on_integer_data(cuda_dev, b, n, m, l):
-    """Every tile of the kernel (B <= 16, <= 64, wider) and every chunking of
+    """Every tile of the kernel (B <= 48, <= 64, wider) and every chunking of
     M (whole rows, full and ragged chunks) equals the plain version bit for
     bit on integer-valued data, and a batch's rows equal the same rows
-    scored by another tile (a single-row call, the first 17 rows)."""
+    scored by another tile (a single-row call, the first 17 or 49 rows)."""
     g = torch.Generator().manual_seed(b * 1000 + n + m + l)
     qv = torch.randint(-20, 21, (b, m), generator=g).float().to(cuda_dev)
     xv = torch.randint(-20, 21, (n, m), generator=g).float().to(cuda_dev)
@@ -120,10 +120,31 @@ def test_fused_auto_tiles_exact_on_integer_data(cuda_dev, b, n, m, l):
         for mode in ("auto", "l2"):
             full = fused_auto(qv, qt, xv, xa, ALPHA, mode, mk)
             assert torch.equal(full, fused_auto_ref(qv, qt, xv, xa, ALPHA, mode, mk))
-            for rows in (slice(0, 1), slice(b - 1, b), slice(0, min(b, 17))):
+            for rows in (slice(0, 1), slice(b - 1, b), slice(0, min(b, 17)),
+                         slice(0, min(b, 49))):
                 part = fused_auto(qv[rows].contiguous(), qt[rows].contiguous(), xv, xa, ALPHA,
                                   mode, None if mk is None else mk[rows].contiguous())
                 assert torch.equal(part, full[rows])
+
+
+@pytest.mark.parametrize("b", [1, 49, 130])
+def test_fused_auto_attribute_cap(cuda_dev, b):
+    """Auto mode takes MAX_ATTRS attributes on every tile at its largest
+    shared-memory footprint (two feature buffers, M = 130), bit for bit on
+    integer data; one more raises, and l2 mode takes any L."""
+    g = torch.Generator().manual_seed(b)
+    n, m, l = 1003, 130, MAX_ATTRS + 1
+    qv = torch.randint(-20, 21, (b, m), generator=g).float().to(cuda_dev)
+    xv = torch.randint(-20, 21, (n, m), generator=g).float().to(cuda_dev)
+    qa = torch.randint(0, 4, (b, l), generator=g, dtype=torch.int32).to(cuda_dev)
+    xa = torch.randint(0, 4, (n, l), generator=g, dtype=torch.int32).to(cuda_dev)
+    qa_cap, xa_cap = qa[:, :MAX_ATTRS].contiguous(), xa[:, :MAX_ATTRS].contiguous()
+    assert torch.equal(fused_auto(qv, qa_cap, xv, xa_cap, ALPHA, "auto"),
+                       fused_auto_ref(qv, qa_cap, xv, xa_cap, ALPHA, "auto"))
+    with pytest.raises(ValueError, match="at most"):
+        fused_auto(qv, qa, xv, xa, ALPHA, "auto")
+    assert torch.equal(fused_auto(qv, qa, xv, xa, ALPHA, "l2"),
+                       fused_auto_ref(qv, qa, xv, xa, ALPHA, "l2"))
 
 
 def test_search_on_card_equals_cpu_on_integer_data(cuda_dev):

@@ -28,7 +28,8 @@ from repro.core.auto import MetricConfig as JMetric  # noqa: E402
 from repro.kernels.fused_auto.fused_auto import fused_auto_scores  # noqa: E402
 from repro.kernels.gather_auto.gather_auto import gather_auto_scores  # noqa: E402
 from repro_torch.core import resolve_device  # noqa: E402
-from repro_torch.kernels.fused_auto.ops import fused_auto, fused_auto_ref  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.fused_auto.ops import MAX_ATTRS, fused_auto, fused_auto_ref  # noqa: E402
 from repro_torch.kernels.gather_auto.ops import gather_auto, gather_auto_ref  # noqa: E402
 from repro_torch.kernels.gather_auto.ref import penalty_sa  # noqa: E402
 
@@ -151,9 +152,10 @@ class TestFusedAuto:
     @pytest.mark.parametrize("kind", TARGETS)
     @pytest.mark.parametrize("b,n,m,l", [
         (4, 64, 32, 5), (9, 300, 96, 3), (1, 1, 8, 1),
-        # the CUDA kernel's narrow, middle and wide tiles; whole-row chunks
-        # (M <= 16) and a ragged last chunk (M = 130)
-        (1, 200, 10, 4), (17, 300, 10, 4), (65, 300, 130, 9),
+        # the CUDA kernel's narrow tile (one and two query tiles), middle and
+        # wide tiles; whole-row chunks (M <= 16), a full and a ragged chunk
+        # (M = 100) and a ragged last chunk after eight full ones (M = 130)
+        (1, 200, 10, 4), (17, 300, 10, 4), (49, 300, 100, 4), (65, 300, 130, 9),
     ])
     def test_matches_pallas_and_brute_twin(self, b, n, m, l, kind, mode):
         qv, xv, qa, xa, iv, mask = make_inputs(b, n, m, l, seed=b * 7 + n)
@@ -226,6 +228,15 @@ class TestDispatch:
             gather_auto(qv, qa, xv, xa, cand.to("meta"))  # device mismatch
         with pytest.raises(ValueError):
             gather_auto(qv, qa, xv, xa, cand, mode="attr")
+
+    def test_attribute_cap_is_the_kernels(self):
+        """The wrapper's MAX_ATTRS is the kernel's kMaxAttrs; the plain
+        version a CPU tensor runs has no cap."""
+        src = (build.CSRC / "fused_auto.cu").read_text()
+        assert f"constexpr int kMaxAttrs = {MAX_ATTRS};" in src
+        qv, xv, qa, xa, _, _ = make_inputs(3, 20, 8, MAX_ATTRS + 1, seed=2)
+        got = fused_auto(t(qv), t(qa), t(xv), t(xa), ALPHA, "auto")
+        assert torch.equal(got, fused_auto_ref(t(qv), t(qa), t(xv), t(xa), ALPHA, "auto"))
 
     def test_asking_for_cuda_without_a_card_raises(self):
         if torch.cuda.is_available():
