@@ -5,18 +5,19 @@ choice with measurements: it builds a probe library that includes
 ``csrc/fused_auto.cu`` and exposes the tile template at each candidate
 shape, then for every B of a sweep, at the retrieval width (M = 10, L = 4)
 and the oracle width (M = 128, L = 5), N = 1M rows, l2 and auto (point
-targets), it times each tile (device ms: 20 calls replayed from one CUDA
-graph, in the tile order A, B, C and again C, B, A) and checks that every
-tile's scores equal the shipped launcher's bit for bit. Run from the root
-of a checkout:
+targets), it times each tile and checks that every tile's scores equal
+the shipped launcher's bit for bit. A time is device ms, the lesser of two
+readings of 20 calls replayed from one CUDA graph, taken in the tile order
+A, B, C and then C, B, A. Run from the root of a checkout:
 
-    PYTHONPATH=src python -m repro_torch.kernels.fused_auto.tile_sweep
+    PYTHONPATH=src python -m repro_torch.kernels.fused_auto.tile_sweep [--json PATH]
 
-It prints the card's name and power limit, one line per shape, and writes
-the table to ``chiprun_out/fused_auto_tiles.json``.
+It prints the card's name and power limit and one line per shape, and
+writes the table as JSON to PATH when asked.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -97,7 +98,10 @@ def device_ms(fn, reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--json", type=Path, help="write the table here")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("tile_sweep: needs a CUDA card", file=sys.stderr)
         return 1
@@ -147,10 +151,9 @@ def main() -> int:
             del qv, qa, out, shipped
         del xv, xa
         torch.cuda.empty_cache()
-    dest = Path("chiprun_out")
-    dest.mkdir(exist_ok=True)
-    (dest / "fused_auto_tiles.json").write_text(
-        json.dumps({"gpu": gpu, "n_rows": N_ROWS, "rows": rows}, indent=1))
+    if args.json:
+        args.json.parent.mkdir(parents=True, exist_ok=True)
+        args.json.write_text(json.dumps({"gpu": gpu, "n_rows": N_ROWS, "rows": rows}, indent=1))
     return 0
 
 
