@@ -66,14 +66,18 @@
 //   qlo, qhi and mask) are read once, coalesced, converted to float once
 //   and kept l-major in dynamic shared memory sized by L, while the first
 //   chunk's copies are in flight. They take L * (BN + 3 * BM) floats, so
-//   auto mode takes at most kMaxAttrs = 96 attributes, what the 128 x 128
-//   tile fits beside two feature buffers in 227 KB (the wrapper raises
-//   above it; l2 mode stages none and takes any L). The epilogue's l loop then reads shared
-//   memory: per row of its tile a thread reads its TN row values as float4
-//   and one query value each of lo, hi and mask, and does TN gaps in
-//   registers. Ints below 2^24 convert to float exactly, so converting
-//   once per tile changes no value. Point targets take the gap as
-//   |a - q| (see penalty_sums), the same bits in fewer operations.
+//   they are staged for at most kMaxAttrs = 96 attributes, what the
+//   128 x 128 tile fits beside two feature buffers in 227 KB. The epilogue's
+//   l loop then reads shared memory: per row of its tile a thread reads its
+//   TN row values as float4 and one query value each of lo, hi and mask,
+//   and does TN gaps in registers. Ints below 2^24 convert to float
+//   exactly, so converting once per tile changes no value. Point targets
+//   take the gap as |a - q| (see penalty_sums), the same bits in fewer
+//   operations. Above kMaxAttrs the same template stages no attributes
+//   (kStaged = false) and the epilogue reads xa, qlo, qhi and mask through
+//   __ldg, in the same l order with the same gap (penalty_sums_ldg), so
+//   auto mode takes any L and every output keeps its bits; l2 mode stages
+//   none.
 // - The squared norms come from the same staged tiles, one thread a row,
 //   in a loop of their own before each chunk's FFMA loop (kept out of the
 //   unrolled product loop, whose schedule they disturbed).
@@ -98,7 +102,7 @@ constexpr int kBK = 16;     // M chunk staged per step
 constexpr int kPad = 4;     // k-major row padding (keeps float4 alignment)
 constexpr int kThreads = 256;
 constexpr size_t kMaxSmem = 232448;  // 227 KB, what one block may use
-constexpr int kMaxAttrs = 96;        // L in auto mode (kernels/fused_auto/ops.py MAX_ATTRS)
+constexpr int kMaxAttrs = 96;        // L staged in auto mode (kernels/fused_auto/ops.py MAX_ATTRS)
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -216,7 +220,35 @@ __device__ __forceinline__ void penalty_sums(const float* xa_s, const float* lo_
   }
 }
 
-template <int BM, int BN, int TM, int TN>
+// penalty_sums for a tile whose attributes are not staged (L > kMaxAttrs):
+// the same sums over l = 0 .. L-1 in order with the same gaps, from xa,
+// qlo, qhi and mask read through __ldg for query b and the thread's TN
+// columns (a column past N reads row N - 1; its output is not written).
+template <bool kPoint, int BN, int TN>
+__device__ __forceinline__ void penalty_sums_ldg(const int* __restrict__ xa,
+                                                 const int* __restrict__ qlo,
+                                                 const int* __restrict__ qhi,
+                                                 const int* __restrict__ mask, int L, int N, int b,
+                                                 int n0, int tx, float (&sa)[TN]) {
+  constexpr int kColStep = BN * 4 / TN;
+  for (int l = 0; l < L; ++l) {
+    const size_t qo = (size_t)b * L + l;
+    const float lo = (float)__ldg(qlo + qo), hi = (float)__ldg(qhi + qo);
+    const float mk = mask ? (float)__ldg(mask + qo) : 1.f;
+#pragma unroll
+    for (int g = 0; g < TN / 4; ++g) {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int n = min(n0 + g * kColStep + tx * 4 + t, N - 1);
+        const float a = (float)__ldg(xa + (size_t)n * L + l);
+        const float gap = kPoint ? fabsf(a - lo) : fmaxf(fmaxf(lo - a, a - hi), 0.f);
+        sa[4 * g + t] += gap * mk;
+      }
+    }
+  }
+}
+
+template <int BM, int BN, int TM, int TN, bool kStaged>
 __global__ void __launch_bounds__(kThreads, BM <= 16 ? 4 : 2) fused_auto_kernel(
     const float* __restrict__ qv, const float* __restrict__ xv,
     const int* __restrict__ qlo, const int* __restrict__ qhi,
@@ -245,7 +277,7 @@ __global__ void __launch_bounds__(kThreads, BM <= 16 ? 4 : 2) fused_auto_kernel(
   stage_chunk<BM>(smem, T::kLdA, qv, B, M, b0, 0, min(kBK, M), tid);
   stage_chunk<BN>(smem + kBK * T::kLdA, T::kLdB, xv, N, M, n0, 0, min(kBK, M), tid_x);
   cp_async_commit();
-  if (mode == 1) {  // while chunk 0 is in flight
+  if (kStaged && mode == 1) {  // while chunk 0 is in flight
     stage_attrs<BM>(lo_s, qlo, B, L, b0, tid);
     stage_attrs<BM>(hi_s, qhi, B, L, b0, tid_x);
     stage_attrs<BM>(mk_s, mask, B, L, b0, (tid + 2 * BM) % kThreads);
@@ -321,7 +353,13 @@ __global__ void __launch_bounds__(kThreads, BM <= 16 ? 4 : 2) fused_auto_kernel(
       float sa[TN];
 #pragma unroll
       for (int j = 0; j < TN; ++j) sa[j] = 0.f;
-      if (qlo == qhi) {
+      if (!kStaged) {
+        if (qlo == qhi) {
+          penalty_sums_ldg<true, BN, TN>(xa, qlo, qhi, mask, L, N, b, n0, tx, sa);
+        } else {
+          penalty_sums_ldg<false, BN, TN>(xa, qlo, qhi, mask, L, N, b, n0, tx, sa);
+        }
+      } else if (qlo == qhi) {
         penalty_sums<true, BM, BN, TN>(xa_s, lo_s, hi_s, mk_s, L, r, tx, sa);
       } else {
         penalty_sums<false, BM, BN, TN>(xa_s, lo_s, hi_s, mk_s, L, r, tx, sa);
@@ -355,9 +393,11 @@ int launch_tile(const float* qv, const float* xv, const int* qlo, const int* qhi
   using T = Tile<BM, BN, TM, TN>;
   const int n_qtiles = (B + BM - 1) / BM;
   const long long blocks = (long long)n_qtiles * ((N + BN - 1) / BN);
-  const size_t smem = T::smem_bytes(M > kBK ? 2 : 1, L, mode);
+  const bool staged = mode != 1 || L <= kMaxAttrs;
+  const size_t smem = T::smem_bytes(M > kBK ? 2 : 1, staged ? L : 0, mode);
   if (blocks > INT_MAX || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kernel = fused_auto_kernel<BM, BN, TM, TN>;
+  auto kernel = staged ? fused_auto_kernel<BM, BN, TM, TN, true>
+                       : fused_auto_kernel<BM, BN, TM, TN, false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
@@ -382,7 +422,6 @@ extern "C" int fused_auto_launch(const void* qv, const void* xv,
                                  int B, int N, int M, int L, float inv_alpha,
                                  int mode, void* stream) {
   if (B <= 0 || N <= 0) return 0;
-  if (mode == 1 && L > kMaxAttrs) return (int)cudaErrorInvalidValue;
   const int vec_out = (N % 4 == 0) && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
   const auto s = (cudaStream_t)stream;
   const auto q = (const float*)qv;

@@ -14,8 +14,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.common import check_operands, inv_alpha, mode_code, split_targets
 from repro_torch.kernels.fused_auto.ref import fused_auto_ref
 
-#: Most attributes the kernel takes in auto mode: it stages a tile's
-#: attribute operands in shared memory (``kMaxAttrs`` in fused_auto.cu).
+#: Most attributes the kernel stages in shared memory in auto mode
+#: (``kMaxAttrs`` in fused_auto.cu); above it the kernel reads them from
+#: device memory in the same order, so any L gives the same bits.
 MAX_ATTRS = 96
 
 
@@ -47,10 +48,6 @@ def fused_auto(
         return fused_auto_ref(qv, qa, xv, xa, alpha, mode, mask)
     if device.type != "cuda":
         raise ValueError(f"fused_auto: unsupported device {device}")
-    if mode == "auto" and l > MAX_ATTRS:
-        raise ValueError(
-            f"fused_auto: the kernel takes at most {MAX_ATTRS} attributes in auto mode, got {l}"
-        )
     qlo, qhi = split_targets(qa)
     if qlo is not qhi:  # intervals; point targets stay one buffer, read as such
         qlo, qhi = qlo.contiguous(), qhi.contiguous()

@@ -127,22 +127,25 @@ def test_fused_auto_tiles_exact_on_integer_data(cuda_dev, b, n, m, l):
                 assert torch.equal(part, full[rows])
 
 
+@pytest.mark.parametrize("l", [MAX_ATTRS, MAX_ATTRS + 1, 200])
 @pytest.mark.parametrize("b", [1, 49, 130])
-def test_fused_auto_attribute_cap(cuda_dev, b):
-    """Auto mode takes MAX_ATTRS attributes on every tile at its largest
-    shared-memory footprint (two feature buffers, M = 130), bit for bit on
-    integer data; one more raises, and l2 mode takes any L."""
-    g = torch.Generator().manual_seed(b)
-    n, m, l = 1003, 130, MAX_ATTRS + 1
+def test_fused_auto_any_attribute_count(cuda_dev, b, l):
+    """Auto mode takes any L on every tile at its largest shared-memory
+    footprint (two feature buffers, M = 130): staged up to MAX_ATTRS, read
+    from device memory above it, bit for bit on integer data either way,
+    with point, interval and masked targets; l2 mode too."""
+    g = torch.Generator().manual_seed(b * 1000 + l)
+    n, m = 1003, 130
     qv = torch.randint(-20, 21, (b, m), generator=g).float().to(cuda_dev)
     xv = torch.randint(-20, 21, (n, m), generator=g).float().to(cuda_dev)
     qa = torch.randint(0, 4, (b, l), generator=g, dtype=torch.int32).to(cuda_dev)
     xa = torch.randint(0, 4, (n, l), generator=g, dtype=torch.int32).to(cuda_dev)
-    qa_cap, xa_cap = qa[:, :MAX_ATTRS].contiguous(), xa[:, :MAX_ATTRS].contiguous()
-    assert torch.equal(fused_auto(qv, qa_cap, xv, xa_cap, ALPHA, "auto"),
-                       fused_auto_ref(qv, qa_cap, xv, xa_cap, ALPHA, "auto"))
-    with pytest.raises(ValueError, match="at most"):
-        fused_auto(qv, qa, xv, xa, ALPHA, "auto")
+    other = torch.randint(0, 4, (b, l), generator=g, dtype=torch.int32).to(cuda_dev)
+    iv = torch.stack([torch.minimum(qa, other), torch.maximum(qa, other)], -1).contiguous()
+    mask = torch.randint(0, 2, (b, l), generator=g, dtype=torch.int32).to(cuda_dev)
+    for qt, mk in ((qa, None), (iv, None), (qa, mask)):
+        assert torch.equal(fused_auto(qv, qt, xv, xa, ALPHA, "auto", mk),
+                           fused_auto_ref(qv, qt, xv, xa, ALPHA, "auto", mk))
     assert torch.equal(fused_auto(qv, qa, xv, xa, ALPHA, "l2"),
                        fused_auto_ref(qv, qa, xv, xa, ALPHA, "l2"))
 

@@ -12,6 +12,7 @@ must agree exactly with the jnp twins as the reference's main path runs
 them (jitted, α static).
 """
 import functools
+import inspect
 
 import pytest
 
@@ -230,13 +231,19 @@ class TestDispatch:
             gather_auto(qv, qa, xv, xa, cand, mode="attr")
 
     def test_attribute_cap_is_the_kernels(self):
-        """The wrapper's MAX_ATTRS is the kernel's kMaxAttrs; the plain
-        version a CPU tensor runs has no cap."""
+        """MAX_ATTRS is the kernel's staging bound kMaxAttrs and no longer a
+        cap: the launcher refuses no L, the wrapper never compares L with it,
+        and a CPU call above it runs the plain version."""
         src = (build.CSRC / "fused_auto.cu").read_text()
         assert f"constexpr int kMaxAttrs = {MAX_ATTRS};" in src
-        qv, xv, qa, xa, _, _ = make_inputs(3, 20, 8, MAX_ATTRS + 1, seed=2)
-        got = fused_auto(t(qv), t(qa), t(xv), t(xa), ALPHA, "auto")
-        assert torch.equal(got, fused_auto_ref(t(qv), t(qa), t(xv), t(xa), ALPHA, "auto"))
+        assert "L > kMaxAttrs) return" not in src
+        assert "MAX_ATTRS" not in inspect.getsource(fused_auto)
+        for l in (MAX_ATTRS + 1, 2 * MAX_ATTRS + 8):
+            qv, xv, qa, xa, iv, mask = make_inputs(3, 20, 8, l, seed=l)
+            for qa_t, mk in ((qa, None), (iv, mask)):
+                got = fused_auto(t(qv), t(qa_t), t(xv), t(xa), ALPHA, "auto", t(mk))
+                assert torch.equal(
+                    got, fused_auto_ref(t(qv), t(qa_t), t(xv), t(xa), ALPHA, "auto", t(mk)))
 
     def test_asking_for_cuda_without_a_card_raises(self):
         if torch.cuda.is_available():
