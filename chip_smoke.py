@@ -10,10 +10,16 @@ into build/kernels/ itself):
 
 Phases:
   1. device: the card's name and power limit (nvidia-smi), kernel build time
-  2. kernels: gather_auto at a refine hop (B=128, C=1280) and an NN-descent
-     block (B=2048, C=520), fused_auto at (B=128, N) - point, interval and
-     masked targets, auto and l2 modes - against their plain versions, with
-     a bitwise batch-invariance check and CUDA-event timings of each mode;
+  2. kernels: gather_auto at a refine hop (B=128, C=1280), an NN-descent
+     block (B=2048, C=520) and the build's narrow block (B=2048, C=32),
+     fused_auto at (B=128, N) - point, interval and masked targets, auto and
+     l2 modes - against their plain versions, with a bitwise
+     batch-invariance check (gather_auto: rows 0, 77 and B-1 against
+     single-row calls) and CUDA-event timings of each mode (gather_auto:
+     device time in both modes at each shape, beside its bound);
+     gather_auto at M in {12289, 20000} (B=4, C=64) against its plain
+     version; fused_auto in auto mode at L in {97, 200} (above its staged
+     attributes) on integer data bit for bit at B in {1, 49, 130};
      fused_auto timed in both modes at B=32 and B=64 (its narrow and middle
      tiles); fused_auto on integer-valued operands bit for bit against its
      plain version at B in {1, 16, 17, 48, 49, 64, 65, 128, 512} and M in
@@ -36,7 +42,8 @@ Phases:
      opq-pq, opq-pq4; S=64) trained and attached to the index, MATCH and
      ONE_OF searched on both backends against the exact oracle (brute-ADC
      MATCH recall@10 must reach 0.5 for the PQ family). Last, profiled
-     graph and brute searches, exact and pq (device busy share, top kernels)
+     graph and brute searches, exact and pq, and one more build (device
+     busy share, each kernel's part, top kernels)
   5. recsys: the fm model at its full width (F=39 fields, V=1,000,000 rows a
      field, D=10; 1.56 GB of tables and 156 MB of linear weights drawn on
      the card from --seed). fm_interaction at serve_p99 (B=512), serve_bulk
@@ -82,6 +89,17 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 #: gather_auto: rtol on each score (sums of M positive terms, other order).
 GATHER_RTOL = 1e-5
+#: gather_auto's (B, C) on the main path: a refine hop (128 queries x 40·32
+#: candidates), an NN-descent block (2048 nodes x Γ_new·Γ + R + R·Γ = 520)
+#: and the build's narrow blocks (2048 x Γ = 32: the random init and the
+#: reverse insert)
+GATHER_SHAPES = {"hop": (128, 1280), "descent": (2048, 520), "narrow": (2048, 32)}
+#: gather_auto above the 48 KB query row its first kernel staged (M > 12,288):
+#: a width that is not a multiple of 4 (scalar loads) and one that is
+GATHER_WIDE = (12_289, 20_000)
+#: fused_auto above the attributes it stages (kMaxAttrs = 96): each tile
+#: (B = 1, 49, 130) on integer data at N = 65,539
+FUSED_MANY_ATTRS, FUSED_MANY_ATTRS_BATCHES = (97, 200), (1, 49, 130)
 #: fused_auto: |Δsv2| ≤ 1e-5·(‖q‖² + ‖x‖²) + 1e-6 (the decomposition cancels),
 #: scaled by the penalty (1 + sa/α)² in auto mode.
 FUSED_RTOL_NORMS, FUSED_ATOL = 1e-5, 1e-6
@@ -198,10 +216,10 @@ def check_kernels(dev, ds, alpha: float, seed: int) -> dict:
     l = db_a.shape[1]
     report = {}
 
-    # ---- gather_auto: refine hop (128 x 40·32) and descent block (2048 x 520)
+    # ---- gather_auto at the main path's three shapes (GATHER_SHAPES)
     worst_ratio, max_err, invariant = 0.0, 0.0, True
     timings = {}
-    for tag, (b, c) in {"hop": (128, 1280), "descent": (2048, 520)}.items():
+    for tag, (b, c) in GATHER_SHAPES.items():
         rows = rng.integers(0, n, b)
         qv = db_v[to_tensor(rows, torch.int64, dev)]
         cand_np = rng.integers(-1, n, (b, c)).astype(np.int32)
@@ -218,41 +236,54 @@ def check_kernels(dev, ds, alpha: float, seed: int) -> dict:
                 tol = GATHER_RTOL * want.double().abs() + 1e-6
                 worst_ratio = max(worst_ratio, float((err / tol).max()))
                 max_err = max(max_err, float(err.max()))
-                alone = gather_auto(
-                    qv[:1].contiguous(), qa[:1].contiguous(), db_v, db_a,
-                    cand[:1].contiguous(), alpha, mode,
-                    None if mask is None else mask[:1].contiguous(),
-                )
-                invariant &= bool(torch.equal(alone[0], got[0]))
+                for r in (0, 77, b - 1):
+                    sl = slice(r, r + 1)
+                    alone = gather_auto(
+                        qv[sl].contiguous(), qa[sl].contiguous(), db_v, db_a,
+                        cand[sl].contiguous(), alpha, mode,
+                        None if mask is None else mask[sl].contiguous(),
+                    )
+                    invariant &= bool(torch.equal(alone[0], got[r]))
                 log(f"  gather_auto {tag:7s} B={b} C={c} {tname:8s} {mode:4s} "
                     f"max|err|={float(err.max()):.3e} worst err/tol={float((err / tol).max()):.3f}")
         qa = to_tensor(ds.attrs[rows], i32, dev)
-        timings[tag] = dict(
+        tm = timings[tag] = dict(
             ms=cuda_ms(lambda: gather_auto(qv, qa, db_v, db_a, cand, alpha, "auto")),
             device_ms=device_ms(lambda: gather_auto(qv, qa, db_v, db_a, cand, alpha, "auto")),
+            l2_device_ms=device_ms(lambda: gather_auto(qv, qa, db_v, db_a, cand, alpha, "l2")),
             plain_ms=cuda_ms(lambda: gather_auto_ref(qv, qa, db_v, db_a, cand, alpha, "auto")),
         )
         valid = cand[cand >= 0]
         rows_read = int(torch.unique(valid).numel())
         n_pairs = int(valid.numel())
-        bytes_ = rows_read * (m + l) * 4 + b * c * 4 * 2 + b * (m + 2 * l) * 4
-        ops = n_pairs * (3 * m + 4 * l + 4)
-        timings[tag]["bound_ms"] = max(bytes_ / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS) * 1e3
-        timings[tag]["bound_by"] = "bytes" if bytes_ / PEAK_BYTES_PER_S >= ops / PEAK_F32_FLOPS else "operations"
-        log(f"  gather_auto {tag} B={b} C={c} M={m}: kernel {timings[tag]['ms']:.4f} ms "
-            f"(device {timings[tag]['device_ms']:.4f} ms), "
-            f"plain {timings[tag]['plain_ms']:.4f} ms, bound {timings[tag]['bound_ms']:.4f} ms "
-            f"({timings[tag]['bound_by']}; {rows_read} rows, {n_pairs} pairs)")
+        # each distinct row read once (the bound), and, as context, each
+        # pair's row read from device memory
+        tm["bound_ms"], tm["bound_by"] = bound(
+            rows_read * (m + l) * 4 + b * c * 4 * 2 + b * (m + 2 * l) * 4,
+            n_pairs * (3 * m + 4 * l + 4))
+        tm["l2_bound_ms"], _ = bound(rows_read * m * 4 + b * c * 4 * 2 + b * m * 4,
+                                     n_pairs * (3 * m + 1))
+        tm["every_pair_from_memory_ms"], _ = bound(
+            n_pairs * (m + l) * 4 + b * c * 4 * 2 + b * (m + 2 * l) * 4, 0)
+        tm.update(rows=rows_read, pairs=n_pairs, shape=f"B={b} C={c} M={m} L={l}")
+        log(f"  gather_auto {tag} B={b} C={c} M={m}: auto kernel {tm['ms']:.4f} ms (device "
+            f"{tm['device_ms']:.4f} ms), l2 device {tm['l2_device_ms']:.4f} ms, plain "
+            f"{tm['plain_ms']:.4f} ms; bound auto {tm['bound_ms']:.4f} ms ({tm['bound_by']}), "
+            f"l2 {tm['l2_bound_ms']:.4f} ms; every pair's row from memory "
+            f"{tm['every_pair_from_memory_ms']:.4f} ms ({rows_read} rows, {n_pairs} pairs)")
+        del qv, qa, cand
     if worst_ratio > 1.0:
         raise SystemExit(f"gather_auto disagrees with its plain version: err/tol {worst_ratio:.3f}")
     if not invariant:
-        raise SystemExit("gather_auto: row 0 alone is not bitwise equal to row 0 in the batch")
+        raise SystemExit("gather_auto: a row alone (0, 77 or B-1) is not bitwise equal to the "
+                         "same row in the batch")
     log(f"  gather_auto: max|err| {max_err:.3e} (tol {GATHER_RTOL:g}·|ref| + 1e-6), "
-        f"batch-invariant bitwise: {invariant}")
+        f"rows 0, 77, B-1 batch-invariant bitwise: {invariant}")
+    timings["hop"]["shape"] += " (refine hop)"
     report["gather_auto"] = dict(
         max_abs_err=max_err, worst_err_over_tol=worst_ratio, bitwise_batch_invariant=invariant,
-        shape="B=128 C=1280 M=128 L=5 (refine hop)", descent_block=timings["descent"],
-        **timings["hop"], library_ms=None,
+        **timings["hop"], descent_block=timings["descent"], narrow_block=timings["narrow"],
+        library_ms=None,
     )
 
     # ---- fused_auto: the brute oracle / psi shape (128 x N)
@@ -389,8 +420,86 @@ def check_fused_auto_exact(dev, alpha: float, seed: int) -> dict:
     log(f"  fused_auto: {cases} integer cases bit for bit against the plain version "
         f"(B in {FUSED_EXACT_BATCHES}, M in {FUSED_EXACT_WIDTHS}, N in {FUSED_EXACT_ROWS}); "
         f"rows 0, 77, B-1 of B=128 and 512 equal single-row calls: {invariant}")
+
+    # above the staged attributes: auto mode, integer data, bit for bit (the
+    # plain version in slices of 16 rows, exact on integer data whatever
+    # the slicing, to bound its (B, N, L) temporaries)
+    n, m, many = FUSED_EXACT_ROWS[1], 128, 0
+    xv = torch.randint(-20, 21, (n, m), generator=g, device=dev).float()
+    for l in FUSED_MANY_ATTRS:
+        xa = torch.randint(0, labels, (n, l), generator=g, device=dev, dtype=torch.int32)
+        for b in FUSED_MANY_ATTRS_BATCHES:
+            qv = torch.randint(-20, 21, (b, m), generator=g, device=dev).float()
+            qa = torch.randint(0, labels, (b, l), generator=g, device=dev, dtype=torch.int32)
+            other = torch.randint(0, labels, (b, l), generator=g, device=dev, dtype=torch.int32)
+            mask = torch.randint(0, 2, (b, l), generator=g, device=dev, dtype=torch.int32)
+            iv = torch.stack([torch.minimum(qa, other), torch.maximum(qa, other)], -1).contiguous()
+            for tname, (qt, mk) in {"point": (qa, None), "interval": (iv, None),
+                                    "masked": (qa, mask)}.items():
+                got = fused_auto(qv, qt, xv, xa, alpha, "auto", mk)
+                want = torch.cat([
+                    fused_auto_ref(qv[r0:r0 + 16], qt[r0:r0 + 16], xv, xa, alpha, "auto",
+                                   None if mk is None else mk[r0:r0 + 16])
+                    for r0 in range(0, b, 16)])
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise SystemExit(
+                        f"fused_auto B={b} N={n} M={m} L={l} {tname} auto: "
+                        f"{int((got != want).sum())} outputs differ from the plain version")
+                many += 1
+                del got, want
+    log(f"  fused_auto: {many} integer cases above the staged attributes bit for bit "
+        f"(L in {FUSED_MANY_ATTRS}, B in {FUSED_MANY_ATTRS_BATCHES}, N={n}, M={m}, auto)")
+    del xv, xa
     torch.cuda.empty_cache()
-    return {"fused_auto_exact_cases": cases, "fused_auto_rows_equal_single_calls": invariant}
+    return {"fused_auto_exact_cases": cases, "fused_auto_many_attrs_cases": many,
+            "fused_auto_rows_equal_single_calls": invariant}
+
+
+def check_gather_wide(dev, alpha: float, seed: int) -> dict:
+    """Phase 2: gather_auto at widths above the 48 KB query row its first
+    kernel staged (GATHER_WIDE), B = 4, C = 64, every target kind and mode,
+    against its plain version (GATHER_RTOL), and each row against a
+    single-row call bit for bit."""
+    from repro_torch.kernels.gather_auto.ops import gather_auto, gather_auto_ref
+
+    g = torch.Generator(device=dev).manual_seed(seed + 9)
+    rng = np.random.default_rng(seed + 9)
+    b, c, n, l, labels = 4, 64, 2048, 5, 4
+    worst, max_err, invariant = 0.0, 0.0, True
+    for m in GATHER_WIDE:
+        db_v = torch.randn((n, m), generator=g, device=dev)
+        db_a = torch.randint(0, labels, (n, l), generator=g, device=dev, dtype=torch.int32)
+        qv = torch.randn((b, m), generator=g, device=dev)
+        cand = torch.from_numpy(rng.integers(-1, n, (b, c)).astype(np.int32)).to(dev)
+        qa_np = rng.integers(0, labels, (b, l)).astype(np.int32)
+        for tname, (qt_np, mk_np) in target_cases(rng, qa_np, labels).items():
+            qt = torch.from_numpy(qt_np).to(dev)
+            mk = None if mk_np is None else torch.from_numpy(mk_np).to(dev)
+            for mode in ("auto", "l2"):
+                got = gather_auto(qv, qt, db_v, db_a, cand, alpha, mode, mk)
+                want = gather_auto_ref(qv, qt, db_v, db_a, cand, alpha, mode, mk).double()
+                torch.cuda.synchronize()
+                err = (got.double() - want).abs()
+                worst = max(worst, float((err / (GATHER_RTOL * want.abs() + 1e-6)).max()))
+                max_err = max(max_err, float(err.max()))
+                for r in range(b):
+                    sl = slice(r, r + 1)
+                    alone = gather_auto(qv[sl].contiguous(), qt[sl].contiguous(), db_v, db_a,
+                                        cand[sl].contiguous(), alpha, mode,
+                                        None if mk is None else mk[sl].contiguous())
+                    invariant &= bool(torch.equal(alone[0], got[r]))
+        log(f"  gather_auto B={b} C={c} M={m}: worst err/tol so far {worst:.3f}, rows equal "
+            f"single-row calls: {invariant}")
+        del db_v, db_a, qv
+    if worst > 1.0:
+        raise SystemExit(f"gather_auto at M in {GATHER_WIDE} disagrees with its plain version: "
+                         f"err/tol {worst:.3f}")
+    if not invariant:
+        raise SystemExit(f"gather_auto at M in {GATHER_WIDE}: a row differs from a single-row call")
+    torch.cuda.empty_cache()
+    return {"wide": dict(widths=GATHER_WIDE, max_abs_err=max_err, worst_err_over_tol=worst,
+                         rows_equal_single_calls=invariant)}
 
 
 def check_adc_kernels(dev, ds, alpha: float, seed: int) -> dict:
@@ -579,14 +688,20 @@ def quant_match_recall(dev, ds, mode: str) -> dict:
             for b in ("graph", "brute")}
 
 
-def profile_call(label: str, fn) -> dict:
-    """One call of ``fn`` under torch.profiler, after one warm-up: wall
-    time, the device's busy time (kernel self time, summed as torch's own
-    table total does) and the kernels that take the most of it."""
+#: the port's kernels by the name their CUDA symbol carries
+OUR_KERNELS = ("gather_auto_kernel", "fused_auto_kernel", "adc_scan", "fm_interaction_kernel")
+
+
+def profile_call(label: str, fn, warmup: bool = True) -> dict:
+    """One call of ``fn`` under torch.profiler, after one warm-up unless
+    told otherwise: wall time, the device's busy time (kernel self time,
+    summed as torch's own table total does), each of the port's kernels'
+    part of it and the kernels that take the most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -597,11 +712,15 @@ def profile_call(label: str, fn) -> dict:
                if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    ours = {k: sum(e.self_device_time_total for e in kernels if k in e.key) / 1e3
+            for k in OUR_KERNELS}
+    ours = {k: v for k, v in ours.items() if v > 0}
     log(f"  profile {label}: wall {wall_ms:.2f} ms under the profiler, device busy "
-        f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%, idle {100 - 100 * busy_ms / wall_ms:.1f}%)")
+        f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%, idle {100 - 100 * busy_ms / wall_ms:.1f}%); "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in ours.items()))
     for e in top:
         log(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "ours_ms": ours,
             "top": [(e.key[:90], e.self_device_time_total / 1e3, e.count) for e in top]}
 
 
@@ -1042,7 +1161,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, SRC)
     from repro_torch.data.synthetic import make_hybrid_dataset
     from repro_torch.core.auto import sample_stats
-    from repro_torch.api import SearchParams
+    from repro_torch.api import Engine, SearchParams
     from repro_torch.kernels import build
     from repro_torch.kernels.adc_scan.ops import adc_scan4_scores, adc_scan_scores
     from repro_torch.kernels.fm_interaction.ops import fm_interaction
@@ -1110,6 +1229,10 @@ def main(argv=None) -> int:
                 for tag, e in (("exact", eng), ("pq", pq_eng)) for b in ("graph", "brute")}
     del eng, pq_eng
     torch.cuda.empty_cache()
+    # one more build, profiled (no warm-up: the kernels ran in the first)
+    profiles["exact/build"] = profile_call(
+        "build", lambda: Engine.build(ds.features, ds.attrs, device=dev), warmup=False)
+    torch.cuda.empty_cache()
 
     # ---- phase 5: the recsys path at the full fm width
     log("[5] recsys: the fm model's serve and retrieval steps at full width")
@@ -1157,7 +1280,11 @@ def main(argv=None) -> int:
          "bitwise_batch_invariant": kern[name]["bitwise_batch_invariant"],
          **{k: kern[name][k] for k in ("serve_p99", "retrieval", "auto_ms", "auto_device_ms",
                                        "tiles", "fused_auto_exact_cases",
-                                       "fused_auto_rows_equal_single_calls") if k in kern[name]}}
+                                       "fused_auto_many_attrs_cases",
+                                       "fused_auto_rows_equal_single_calls", "l2_device_ms",
+                                       "l2_bound_ms", "every_pair_from_memory_ms",
+                                       "descent_block", "narrow_block", "wide")
+                if k in kern[name]}}
         for name, (src, rep) in sources.items()
     ]}
     log("[6] summary " + json.dumps({"n": args.n, "main_path": main_out, "quantized": quant_out,
@@ -1167,6 +1294,7 @@ def main(argv=None) -> int:
                                                   "quantized": quant_launches,
                                                   "recsys": recsys_launches},
                                      "gather_descent_block": kern["gather_auto"]["descent_block"],
+                                     "gather_narrow_block": kern["gather_auto"]["narrow_block"],
                                      "fm_serve_p99": kern["fm_interaction"]["serve_p99"],
                                      "fused_auto_retrieval": kern["fused_auto"]["retrieval"]}))
     log(gpu_line())
