@@ -1194,6 +1194,7 @@ def main(argv=None) -> int:
     log("[2] kernels against their plain versions")
     kern = check_kernels(dev, ds, alpha, args.seed)
     kern["fused_auto"].update(check_fused_auto_exact(dev, alpha, args.seed))
+    kern["gather_auto"].update(check_gather_wide(dev, alpha, args.seed))
     kern.update(check_adc_kernels(dev, ds, alpha, args.seed))
 
     # ---- phase 3: a small input against the CPU's plain versions

@@ -150,6 +150,31 @@ def test_fused_auto_any_attribute_count(cuda_dev, b, l):
                        fused_auto_ref(qv, qa, xv, xa, ALPHA, "l2"))
 
 
+@pytest.mark.parametrize("c", [32, 37])
+@pytest.mark.parametrize("m", [128, 100, 12289, 20000])
+def test_gather_auto_any_width_and_span(cuda_dev, m, c):
+    """gather_auto at widths above a 48 KB query row (M > 12,288; float4 and
+    scalar loads), at the build's narrow C = 32 and an odd C (a span cut
+    short), against its plain version (rtol 1e-5), for every target kind
+    and mode; rows 0, 77 and B-1 equal single-row calls bit for bit."""
+    b = 80
+    qv, xv, qa, xa, iv, mask, _ = inputs(b, 1003, m, 5, seed=m + c, dev=cuda_dev)
+    g = torch.Generator().manual_seed(m * c)
+    cand = torch.randint(-1, 1003, (b, c), generator=g, dtype=torch.int32).to(cuda_dev)
+    for qt, mk in ((qa, None), (iv, None), (qa, mask)):
+        for mode in ("auto", "l2"):
+            full = gather_auto(qv, qt, xv, xa, cand, ALPHA, mode, mk)
+            torch.testing.assert_close(
+                full, gather_auto_ref(qv, qt, xv, xa, cand, ALPHA, mode, mk), rtol=1e-5, atol=1e-6)
+            assert bool((full[cand < 0] == 3.0e38).all())
+            for r in (0, 77, b - 1):
+                sl = slice(r, r + 1)
+                one = gather_auto(qv[sl].contiguous(), qt[sl].contiguous(), xv, xa,
+                                  cand[sl].contiguous(), ALPHA, mode,
+                                  None if mk is None else mk[sl].contiguous())
+                assert torch.equal(one[0], full[r])
+
+
 def test_search_on_card_equals_cpu_on_integer_data(cuda_dev):
     ds = make_hybrid_dataset(n=3000, n_queries=32, profile="sift", n_clusters=8,
                              attr_cluster_corr=0.6, seed=1)
