@@ -42,8 +42,8 @@ Phases:
      opq-pq, opq-pq4; S=64) trained and attached to the index, MATCH and
      ONE_OF searched on both backends against the exact oracle (brute-ADC
      MATCH recall@10 must reach 0.5 for the PQ family). Last, profiled
-     graph and brute searches, exact and pq, and one more build (device
-     busy share, each kernel's part, top kernels)
+     graph and brute searches, exact and pq (device busy share, each
+     kernel's part, top kernels)
   5. recsys: the fm model at its full width (F=39 fields, V=1,000,000 rows a
      field, D=10; 1.56 GB of tables and 156 MB of linear weights drawn on
      the card from --seed). fm_interaction at serve_p99 (B=512), serve_bulk
@@ -54,7 +54,8 @@ Phases:
      Then the recsys path: make_recsys_serve_step at serve_p99 and
      serve_bulk, make_recsys_retrieval_step at retrieval_cand (one user
      against 1,000,000 items, k=100) and at B=512, each a median of
-     several batches, then each profiled once
+     several batches, then each profiled once; last of all, one more
+     Engine.build of phase 4's data under the profiler
   6. a JSON line of every kernel's launches in phases 4 and 5 (the exact,
      quantized and recsys paths, each counted from 0; a kernel of a path
      that the path never launched fails the run), error and times
@@ -1032,13 +1033,16 @@ def check_recsys_kernels(dev, cfg, params, seed: int) -> dict:
             (b * m + n * m + n * l + b * l * 2) * 4 + b * n * 4,
             2 * b * n * m + 2 * (b + n) * m + 4 * b * n + b * n * (5 * l + 3),
         )
+        l2_bound_ms, _ = bound((b * m + n * m) * 4 + b * n * 4,
+                               2 * b * n * m + 2 * (b + n) * m + b * n)
         retr[f"B={b}"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
                               bound_ms=bound_ms, bound_by=bound_by, l2_ms=l2_ms,
-                              l2_device_ms=l2_dev_ms)
+                              l2_device_ms=l2_dev_ms, l2_bound_ms=l2_bound_ms)
         log(f"  fused_auto  B={b} N={n} M={m} L={l} auto: kernel {ms:.4f} ms (device "
             f"{dev_ms:.4f} ms), plain "
             f"{plain_ms:.4f} ms, torch.cdist {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}); l2: kernel {l2_ms:.4f} ms (device {l2_dev_ms:.4f} ms)")
+            f"({bound_by}); l2: kernel {l2_ms:.4f} ms (device {l2_dev_ms:.4f} ms), bound "
+            f"{l2_bound_ms:.4f} ms")
     if worst > 1.0:
         raise SystemExit(f"fused_auto at M={m} disagrees with its plain version: err/tol {worst:.3f}")
     if not invariant:
@@ -1230,10 +1234,6 @@ def main(argv=None) -> int:
                 for tag, e in (("exact", eng), ("pq", pq_eng)) for b in ("graph", "brute")}
     del eng, pq_eng
     torch.cuda.empty_cache()
-    # one more build, profiled (no warm-up: the kernels ran in the first)
-    profiles["exact/build"] = profile_call(
-        "build", lambda: Engine.build(ds.features, ds.attrs, device=dev), warmup=False)
-    torch.cuda.empty_cache()
 
     # ---- phase 5: the recsys path at the full fm width
     log("[5] recsys: the fm model's serve and retrieval steps at full width")
@@ -1255,6 +1255,12 @@ def main(argv=None) -> int:
     launches = {k: exact_launches[k] + quant_launches[k] + recsys_launches[k] for k in wrappers}
     profiles.update({f"recsys/{label}": profile_call(label, fn) for label, fn in calls.items()})
     del fm_params, calls
+    torch.cuda.empty_cache()
+    # one more build, profiled (no warm-up: the kernels ran in the first).
+    # Last of all: after its many thousand launches the profiler drops the
+    # events of later profiles.
+    profiles["exact/build"] = profile_call(
+        "build", lambda: Engine.build(ds.features, ds.attrs, device=dev), warmup=False)
 
     # ---- phase 6: the kernels line
     sources = {

@@ -26,16 +26,21 @@
 // read. The gather is fused: the (B, C, M) candidate block the JAX path
 // materialises never exists in device memory, so each row is read once,
 // straight from the table. The bound chip_smoke.py states counts each
-// distinct row once; rows repeated across pairs come from L2 when they are
-// still there.
+// distinct row once; a row repeated across pairs comes from L2 only while
+// it is still there, so at an NN-descent block, whose pairs read most rows
+// of a 512 MB table at random, nearly every pair's row leaves device
+// memory, and the attributes of each pair cost one more random 32-B
+// sector.
 //
 // Design: a warp scores one (query, span of up to 32 candidates) work unit,
 // and keeps the loads of R gathered rows in flight at once:
 // - The span's ids are read coalesced, one a lane, and handed out with
 //   __shfl_sync. Warps walk the spans of a query side by side, so a block
-//   of 8 warps shares its queries' rows in L1. The span (8, 16 or 32) and R
-//   are picked by the launcher from the number of work units (see
-//   gather_auto_launch); neither enters any result.
+//   of 8 warps shares its queries' rows in L1. The launcher takes R = 8 and
+//   a span of 32: of R in {4, 8, 16} and spans of 8, 16 and 32, that was
+//   the fastest at all three main-path shapes in both modes, or within 1%
+//   (kernels/gather_auto/variant_sweep.py, PERF.md). Neither enters any
+//   result.
 // - Lane j keeps its stripe of the query row (float4 groups j, j + 32, ...)
 //   in registers, loaded once per warp; groups past kQRegs (M > 256) are
 //   read through __ldg, from L1. The query needs no shared memory, so any M
