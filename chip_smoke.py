@@ -28,7 +28,9 @@ Phases:
      adc_scan
      (K=256) and adc_scan4 (K=16) at (B=128, N, S=64), bit for bit against
      their plain versions, batch-invariant, adc_scan4 on packed codes equal
-     to adc_scan on the same codes unpacked, plus a small odd-S case
+     to adc_scan on the same codes unpacked, plus small odd-S cases; each
+     timed in l2 and auto beside its bytes bound and its lookup ceiling
+     (B·N·S lookups over SMs x 32 a clock at the card's maximum SM clock)
   3. small input (N = 20,000): the main path on the card against the same
      path on the CPU (plain versions); MATCH recall@10 must reach 0.5 on the
      card and stay within 0.02 of the CPU's; then Engine.build with pq4 and
@@ -88,6 +90,9 @@ SRC = os.path.join(ROOT, "src")
 #: H100 SXM data sheet peaks (dense, no sparsity) used for bound_ms.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+#: four-byte shared-memory accesses an SM serves a clock (one conflict-free
+#: warp access): the ADC scanners' lookup ceiling
+SMEM_LOOKUPS_PER_CLOCK = 32
 #: gather_auto: rtol on each score (sums of M positive terms, other order).
 GATHER_RTOL = 1e-5
 #: gather_auto's (B, C) on the main path: a refine hop (128 queries x 40·32
@@ -118,6 +123,9 @@ FUSED_EXACT_ROWS = (65_536, 65_539)
 #: ADC subspaces: the pq_subspaces of the repo's quant sweep
 #: (benchmarks/paper_benchmarks.py:360); 2 dims each at M = 128.
 ADC_S = 64
+#: odd subspace counts checked beside it: below one 32-subspace chunk, and
+#: a partial second chunk
+ADC_ODD_S = (7, 33)
 QUANT_MODES = ("sq8", "pq", "pq4", "opq-pq", "opq-pq4")
 #: phase 3: corpus size where both packages reach MATCH recall@10 0.986 on
 #: the CPU, and how far the card's recall may sit from the CPU's (float
@@ -146,6 +154,15 @@ def gpu_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def max_sm_clock_mhz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), in MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return float(out.stdout.strip().splitlines()[0])
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -556,18 +573,24 @@ def check_adc_kernels(dev, ds, alpha: float, seed: int) -> dict:
                     packed_equals_unpacked &= bool(torch.equal(got, unpacked))
                     del unpacked
                 del got
-    # odd S: the 4-bit scanner stops at S, the pad nibble is never read
-    s_odd, n_odd = 7, 10007
-    lut_o = lut4[:16, :s_odd].contiguous()
-    codes_o = codes4[:n_odd, :s_odd].contiguous()
-    for tname, (qa_np, mask_np) in target_cases(rng, ds.attrs[rows[:16]], ds.labels_per_dim).items():
-        qa = to_tensor(qa_np, torch.int32, dev)
-        mask = None if mask_np is None else to_tensor(mask_np, torch.int32, dev)
-        for mode in ("auto", "l2"):
-            got = one_case(f"B=16 N={n_odd} S={s_odd} {tname:8s}", "adc_scan4", adc_scan4_scores,
-                           adc_scan4_ref, lut_o, pack_nibbles(codes_o), qa, db_a[:n_odd], mode, mask)
-            unpacked = adc_scan_scores(lut_o, codes_o, qa, db_a[:n_odd], alpha, mode, mask)
-            packed_equals_unpacked &= bool(torch.equal(got, unpacked))
+    # odd S: fewer subspaces than the 32 residue classes, and a partial second
+    # chunk; the 4-bit scanner's pad nibble counts as +0.0
+    n_odd = 10007
+    for s_odd in ADC_ODD_S:
+        lut_o, lut4_o = lut[:16, :s_odd].contiguous(), lut4[:16, :s_odd].contiguous()
+        codes_o, codes4_o = codes[:n_odd, :s_odd].contiguous(), codes4[:n_odd, :s_odd].contiguous()
+        for tname, (qa_np, mask_np) in target_cases(rng, ds.attrs[rows[:16]],
+                                                    ds.labels_per_dim).items():
+            qa = to_tensor(qa_np, torch.int32, dev)
+            mask = None if mask_np is None else to_tensor(mask_np, torch.int32, dev)
+            for mode in ("auto", "l2"):
+                tag = f"B=16 N={n_odd} S={s_odd} {tname:8s}"
+                one_case(tag, "adc_scan", adc_scan_scores, adc_scan_ref, lut_o, codes_o, qa,
+                         db_a[:n_odd], mode, mask)
+                got = one_case(tag, "adc_scan4", adc_scan4_scores, adc_scan4_ref, lut4_o,
+                               pack_nibbles(codes4_o), qa, db_a[:n_odd], mode, mask)
+                unpacked = adc_scan_scores(lut4_o, codes4_o, qa, db_a[:n_odd], alpha, mode, mask)
+                packed_equals_unpacked &= bool(torch.equal(got, unpacked))
     for name, st in stats.items():
         if not st["bitwise"]:
             raise SystemExit(f"{name} is not bitwise equal to its plain version "
@@ -581,23 +604,31 @@ def check_adc_kernels(dev, ds, alpha: float, seed: int) -> dict:
 
     report = {}
     qa = to_tensor(ds.attrs[rows], torch.int32, dev)
+    sm_clock_hz = max_sm_clock_mhz() * 1e6
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, (fn, ref, lt, cd) in kernels.items():
         ms = cuda_ms(lambda: fn(lt, cd, qa, db_a, alpha, "l2"))
         dev_ms = device_ms(lambda: fn(lt, cd, qa, db_a, alpha, "l2"))
+        auto_dev_ms = device_ms(lambda: fn(lt, cd, qa, db_a, alpha, "auto"))
         plain_ms = cuda_ms(lambda: ref(lt, cd, qa, db_a, alpha, "l2"), reps=5)
         k = lt.shape[2]
         bytes_ = cd.numel() + lt.numel() * 4 + b * n * 4  # codes, tables, scores (l2 mode)
         ops = b * n * (s + 1)  # one add per subspace and the clamp
         bound_ms = max(bytes_ / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS) * 1e3
         bound_by = "bytes" if bytes_ / PEAK_BYTES_PER_S >= ops / PEAK_F32_FLOPS else "operations"
+        # one shared-memory table lookup per add; an SM serves 32 a clock
+        ceiling_ms = b * n * s / (n_sm * SMEM_LOOKUPS_PER_CLOCK * sm_clock_hz) * 1e3
         log(f"  {name} B={b} N={n} S={s} K={k} l2: kernel {ms:.4f} ms (device {dev_ms:.4f} ms), "
-            f"plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}); {b * n * s / ms / 1e9:.1f} G lookups/s")
+            f"auto device {auto_dev_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}); lookup ceiling {ceiling_ms:.4f} ms "
+            f"({n_sm} SMs x {SMEM_LOOKUPS_PER_CLOCK} a clock at {sm_clock_hz / 1e6:.0f} MHz); "
+            f"{b * n * s / dev_ms / 1e6:.1f} G lookups/s")
         report[name] = dict(
             max_abs_err=stats[name]["max_abs_err"], worst_err_over_tol=0.0,
             bitwise_equal=stats[name]["bitwise"], bitwise_batch_invariant=stats[name]["invariant"],
             shape=f"B={b} N={n} S={s} K={k} L={ds.attr_dim} (brute ADC scan, l2)",
             ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            auto_device_ms=auto_dev_ms, lookup_ceiling_ms=ceiling_ms,
             # no single PyTorch call computes this: the one-hot product
             # would need an (N, S*K) one-hot of N*S*K*4 bytes (64 GB at 1M)
             library_ms=None,
@@ -1290,6 +1321,7 @@ def main(argv=None) -> int:
                                        "fused_auto_many_attrs_cases",
                                        "fused_auto_rows_equal_single_calls", "l2_device_ms",
                                        "l2_bound_ms", "every_pair_from_memory_ms",
+                                       "lookup_ceiling_ms",
                                        "descent_block", "narrow_block", "wide")
                 if k in kern[name]}}
         for name, (src, rep) in sources.items()

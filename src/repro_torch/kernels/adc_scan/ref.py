@@ -6,9 +6,15 @@ with S_A the (optionally masked) attribute penalty: |a − q| for (B, L)
 point targets, the interval gap max(lo − a, a − hi, 0) for (B, L, 2)
 targets. ``mode='l2'`` drops the attribute factor.
 
-The sum runs over s in ascending order, one f32 add per subspace, as the
-reference's plain version does and as the CUDA kernels do, so kernel and
-plain version agree bit for bit.
+The sum order defines the bits, and the CUDA kernels (``csrc/adc_scan.cu``)
+use the same one, so kernel and plain version agree bit for bit: for each
+residue class r = s mod 32, sum the class's entries in ascending s from
++0.0 (a class that holds no subspace is +0.0), then reduce the 32 class
+sums by a halving tree, c[i] + c[i + h] for i < h, h = 16, 8, 4, 2, 1.
+Every step is one f32 add. The reference sums in another order (its Pallas
+body is a one-hot product, its plain version a gather-sum), so across the
+packages the scores agree exactly on integer tables and within float
+rounding otherwise.
 """
 from __future__ import annotations
 
@@ -17,6 +23,37 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.gather_auto.ref import auto_penalize, penalty_sa
+
+#: residue classes of the subspaces (s mod CLASSES): one shared-memory bank
+#: each in the kernel
+CLASSES = 32
+#: floats of gathered table entries held at once, (B, 32, rows): 256 MB
+CHUNK_ELEMENTS = 1 << 26
+
+
+def class_tree_sum(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """(B, N) Σ_s lut[b, s, codes[n, s]] in the scanners' order: class sums
+    over s ≡ r (mod 32) in ascending s from +0.0, then the halving tree.
+    Rows go in chunks of at most ``CHUNK_ELEMENTS`` gathered entries."""
+    b, s, _ = lut.shape
+    n = codes.shape[0]
+    out = torch.empty((b, n), dtype=torch.float32, device=lut.device)
+    rows = max(1, CHUNK_ELEMENTS // (b * CLASSES))
+    idx = codes.long()
+    for r0 in range(0, n, rows):
+        part = idx[r0:r0 + rows]
+        c = torch.zeros((b, CLASSES, part.shape[0]), dtype=torch.float32, device=lut.device)
+        for s0 in range(0, s, CLASSES):
+            w = min(CLASSES, s - s0)
+            # (B, w, rows): lut[b, s0 + i, codes[n, s0 + i]]
+            e = torch.gather(lut[:, s0:s0 + w], 2, part[:, s0:s0 + w].T[None].expand(b, -1, -1))
+            c[:, :w] = c[:, :w] + e
+        h = CLASSES // 2
+        while h >= 1:
+            c = c[:, :h] + c[:, h:2 * h]
+            h //= 2
+        out[:, r0:r0 + rows] = c[:, 0]
+    return out
 
 
 def adc_scan_ref(
@@ -30,11 +67,7 @@ def adc_scan_ref(
 ) -> torch.Tensor:
     if mode not in ("auto", "l2"):
         raise ValueError(f"adc_scan supports modes ('auto', 'l2'), got {mode!r}")
-    lut = lut.to(torch.float32)
-    sv2 = torch.zeros((lut.shape[0], codes.shape[0]), dtype=torch.float32, device=lut.device)
-    for s in range(lut.shape[1]):
-        sv2 = sv2 + lut[:, s, :].index_select(1, codes[:, s].long())
-    sv2 = torch.clamp_min(sv2, 0.0)
+    sv2 = torch.clamp_min(class_tree_sum(lut.to(torch.float32), codes), 0.0)
     if mode == "l2":
         return sv2
     sa = penalty_sa(qa, xa[None].expand(lut.shape[0], -1, -1), mask)

@@ -8,214 +8,552 @@
 // (l.160). On the main path the brute backend's two-stage code scan calls
 // them (api/engine.py, BruteForceSearcher._adc_two_stage, mode "l2").
 //
-// For query b and row n:
-//   sv2 = max(sum_{s = 0 .. S-1} lut[b, s, code(n, s)], 0)
+// For query b and row n, with e_s = lut[b, s, code(n, s)], the sum order
+// that defines the bits:
+//   class sums  c[r] = e_r + e_{r+32} + e_{r+64} + ... over s < S, in
+//               ascending s from +0.0, for r = 0 .. 31 (a class that holds
+//               no subspace is +0.0)
+//   tree        c[i] = c[i] + c[i + h] for i < h, h = 16, 8, 4, 2, 1
+//   sv2 = max(c[0], 0)
 //   l2 mode:    out[b, n] = sv2
 //   auto mode:  sa = sum_l mask[b, l] * max(qlo[b, l] - a_l, a_l - qhi[b, l], 0)
 //               out[b, n] = (sv2 * p) * p,   p = 1 + sa * inv_alpha
-// The sum runs over s in ascending order, one __fadd_rn per subspace, and
-// the penalty is __fmul_rn / __fadd_rn (never an fma), as the plain version
-// (kernels/adc_scan/ref.py) computes it: the two agree bit for bit. For the
-// 4-bit launcher code(n, s) is the low nibble of byte s / 2 for even s and
-// the high nibble for odd s. Odd S stops at S, so the pad nibble is never
-// read; the TPU wrapper adds a zero table instead, and since table entries
-// are >= 0 both give the same bits. Given the same codes unpacked, both
-// launchers run the same adds in the same order: adc_scan4 on packed codes
-// equals adc_scan on the unpacked codes bit for bit.
+// Every add is one __fadd_rn and the penalty __fmul_rn / __fadd_rn (never
+// an fma), as the plain version (kernels/adc_scan/ref.py) computes it: the
+// two agree bit for bit. For the 4-bit launcher code(n, s) is the low nibble
+// of byte s / 2 for even s and the high nibble for odd s; given the same
+// codes unpacked, both launchers run the same adds in the same order, so
+// adc_scan4 on packed codes equals adc_scan on the unpacked codes bit for
+// bit. Subspaces s >= S read table entries staged as +0.0, whatever the code
+// (the pad nibble of odd S included); adding +0.0 to a class sum, which is
+// never -0.0, changes no bit, so they count as absent.
 //
-// The TPU kernel turns the S lookups into a one-hot (rows, S*K) tile and a
-// matrix product, because gathers suit the TPU poorly. Here a lookup from
-// shared memory is cheap, and the one-hot product would spend S*K
-// multiply-adds on each score instead of S adds, so this kernel looks the
-// codes up directly.
+// What bounds it on this card. At B = 128, N = 1M, S = 64 the bytes bound is
+// about 0.17 ms (64 MB of codes read once, 512 MB of scores written) and the
+// 8.2e9 adds take 0.12 ms at the f32 peak. But every add needs one table
+// entry from shared memory, and an SM serves at most 32 four-byte lookups a
+// clock (one conflict-free warp access): 8.2e9 / (132 SMs * 32 * 1.98 GHz)
+// = 0.98 ms at the H100's maximum SM clock. That lookup ceiling bounds any
+// design that keeps the tables in shared memory; chip_smoke.py prints it
+// from the card's own clock beside the bytes bound. The design spends one
+// conflict-free shared-memory access on each lookup and few instructions
+// around it:
 //
-// What bounds it on this card: at B = 128, N = 1M, S = 64 the bytes bound is
-// about 0.17 ms (64 MB of codes read, 512 MB of scores written) and the
-// 8.2e9 adds take 0.12 ms at the f32 peak. The real limit of this design is
-// the 8.2e9 shared-memory lookups. With K = 256 the 32 lanes of a warp look
-// up 32 random entries of a 256-entry table, which fall unevenly into the 32
-// banks (a few-way bank conflict per lookup); with K = 16 the table row
-// spans 16 banks, so a warp's lookup is one conflict-free access (equal
-// codes broadcast).
-//
-// Design: a block stages the tables of bq queries in dynamic shared memory
-// (bq * S * K floats, up to the card's opt-in limit, bq <= 8: 3 queries at
-// K = 256, S = 64; 8 at K = 16). grid.x runs over query groups and grid.y
-// over row slices, so blocks with neighbouring ids scan the same rows and
-// the codes come from L2 after the first read. Each thread owns one row at a
-// time (grid-stride over rows), reads its code bytes as 32-bit words (the
-// codes stay uint8 in device memory, never widened), and for each subspace
-// adds that subspace's entry of every staged table to the query's own
-// accumulator. Consecutive threads own consecutive rows, so the score writes
-// coalesce.
-//
-// Threads per block follow the shared memory a block takes. At K = 256 one
-// block fills an SM's shared memory, so it runs 1024 threads: with 256 the
-// SM would hold 8 warps, too few to hide the lookups' latency. Where
-// several blocks fit (K = 16) a block runs 256 threads, which need fewer
-// registers, and the SM holds several.
-//
-// Batch invariance: out[b, n] depends only on lut[b], codes[n], the targets
-// of b and the attributes of n, never on B, the query group or the slice.
+// - Tables transposed. A block stages the tables of bq queries in passes of
+//   kPass slots: a 32-float row (128 bytes) holds one chunk of 32
+//   subspaces, one code and one slot, and the kPass slots of a code lie 128
+//   bytes apart. Entry (s, c) lies in bank s mod 32 whatever the code c, and
+//   one address serves all slots of a pass (the slot's offset folds into
+//   the load). Entries past S are +0.0. The staging reads 32 consecutive
+//   subspaces a warp, one a lane, so its stores hit 32 banks too.
+// - One row per lane, subspaces in a lane-rotated order. At step t of a
+//   chunk, lane l looks up subspace 32 * chunk + (t + l) mod 32: the 32
+//   lanes of a warp hit 32 distinct banks, so every lookup is one
+//   wavefront, whatever the codes. Step t of lane l sums class (t + l) mod 32.
+// - The halving tree pairs i with i + h mod 2h at every level; a rotation of
+//   the 32 class sums maps those pairs onto themselves, and f32 addition is
+//   commutative bit for bit. So the tree over the lane's steps, with static
+//   register indices and no shuffles, gives the canonical bits in whichever
+//   lane owns the row. A score depends on lut[b], codes[n] and the
+//   attributes only, not on the lane, block, slice, B or N: the scanner is
+//   batch- and position-invariant.
+// - Codes. A lane loads its row's chunks (32 bytes each, 16 packed) with
+//   16-byte loads where the row width and base allow, one row (or chunk)
+//   ahead of the one it scores, rotates them by l code positions in
+//   registers (word selects, then one funnel shift a word) and takes each
+//   code with a shift and a mask.
+// - kPass queries share one pass over a row: the code, its rotated subspace
+//   and its address are computed once a step for all of them. Up to S = 64
+//   (two chunks) the row's codes stay in registers for all passes, each
+//   step sums its class whole (chunk 0, then chunk 1) and the tree folds it
+//   in at once, so a query keeps 16 tree nodes live, not 32 class sums;
+//   beyond, a pass walks the chunks with 32 class sums a query and one
+//   query a pass. With three tables at K = 256, S = 64 (192 KB) a block fills
+//   an SM's shared memory; at K = 16 a block holds kMaxQueries tables.
+// - Registers set the threads: three passes of 8-bit codes take 384 threads
+//   (up to 170 registers each), the rest 512 (variant_sweep.py times the
+//   others).
+// - grid.x runs over query groups and grid.y over row slices, so blocks with
+//   neighbouring ids scan the same rows and the codes come from L2 after the
+//   first read; consecutive lanes own consecutive rows, so the score writes
+//   coalesce. The auto epilogue reads the row's attributes once a pass.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxQueries = 8;
-// blocks aimed for per SM, over all query groups and row slices.
+constexpr int kLanes = 32;
+// tables a block stages at most (fewer where they do not fit): 4 passes of
+// 3 at K = 16 (variant_sweep.py: 12 beat 15, 16 and 24 at S = 64)
+constexpr int kMaxQueries = 12;
+// blocks aimed for per SM, over all query groups and row slices
 constexpr int kBlocksPerSm = 16;
 
-__device__ __forceinline__ void add_entry(float (&acc)[kMaxQueries],
-                                          const float* __restrict__ lut_s, int s,
-                                          uint32_t code, int K, int stride, int nq) {
-  const float* e = lut_s + (size_t)s * K + code;
+template <bool kPacked>
+struct Chunk {  // the codes of 32 consecutive subspaces of one row
+  static constexpr int kBytes = kPacked ? 16 : 32;
+  static constexpr int kWords = kBytes / 4;
+  static constexpr int kBits = kPacked ? 4 : 8;  // bits a code
+  static constexpr int kPerWord = 32 / kBits;    // codes a word
+};
+
+// Chunk ch of a row of W code bytes, as words; bytes past W read as 0.
+template <bool kPacked>
+__device__ __forceinline__ void load_chunk(uint32_t (&v)[Chunk<kPacked>::kWords],
+                                           const uint8_t* __restrict__ row, int ch, int W,
+                                           bool vec) {
+  constexpr int kWords = Chunk<kPacked>::kWords;
+  const int b0 = ch * Chunk<kPacked>::kBytes;
+  if (vec) {  // W % 16 == 0 and a 16-byte aligned base: whole 16-byte pieces
 #pragma unroll
-  for (int j = 0; j < kMaxQueries; ++j) {
-    if (j < nq) acc[j] = __fadd_rn(acc[j], e[j * stride]);
+    for (int i = 0; i < kWords / 4; ++i) {
+      uint4 q = make_uint4(0u, 0u, 0u, 0u);
+      if (b0 + 16 * i < W) q = __ldg(reinterpret_cast<const uint4*>(row + b0 + 16 * i));
+      v[4 * i] = q.x;
+      v[4 * i + 1] = q.y;
+      v[4 * i + 2] = q.z;
+      v[4 * i + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int b = b0 + 4 * w + t;
+        if (b < W) word |= (uint32_t)__ldg(row + b) << (8 * t);
+      }
+      v[w] = word;
+    }
   }
 }
 
-template <bool kPacked, int kThreads>
+// v[w] <- v[(w + q) mod kWords]: a rotation by q words in log2(kWords)
+// stages of selects, every register index static (the loops count up by
+// one, so they unroll).
+template <int kWords>
+__device__ __forceinline__ void rotate_words(uint32_t (&v)[kWords], int q) {
+  constexpr int kStages = kWords == 8 ? 3 : 2;
+  static_assert(kWords == 4 || kWords == 8, "a chunk is 4 or 8 words");
+#pragma unroll
+  for (int k = 0; k < kStages; ++k) {
+    const int step = 1 << k;
+    const bool on = (q & step) != 0;
+    uint32_t t[kWords];
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) t[w] = on ? v[(w + step) % kWords] : v[w];
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) v[w] = t[w];
+  }
+}
+
+// One level of the halving tree: a[i] = a[i] + a[i + H] for i < H. A level
+// a template, so every index is static once the loop unrolls.
+template <int H>
+__device__ __forceinline__ void fold(float (&a)[kLanes]) {
+#pragma unroll
+  for (int i = 0; i < H; ++i) a[i] = __fadd_rn(a[i], a[i + H]);
+}
+
+// One shared-memory load at byte address addr + kOffset (kOffset folds
+// into the instruction).
+template <int kOffset>
+__device__ __forceinline__ float lds(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1+%2];" : "=f"(v) : "r"(addr), "n"(kOffset));
+  return v;
+}
+
+// val[J] += the entry of slot J at addr: a pass's slots lie 128 bytes apart.
+template <int J, int kPass>
+__device__ __forceinline__ void lookup(float (&val)[kPass], uint32_t addr) {
+  if constexpr (J < kPass) {
+    val[J] = __fadd_rn(val[J], lds<J * 128>(addr));
+    lookup<J + 1, kPass>(val, addr);
+  }
+}
+
+// Stage tables b0 .. b0 + nq - 1 of lut (B, S, K) in passes of kPass slots:
+// entry (s, c) of the table in slot j of pass p lies at float
+//   (((p * chunks + s / 32) * K + c) * kPass + j) * 32 + s % 32,
+// +0.0 for s >= S and for the slots past nq. So a 32-float row (128 bytes)
+// holds the entries of one chunk, one code and one slot, entry (s, c) lies
+// in bank s mod 32, and a pass's slots lie 128 bytes apart. A warp stages 32
+// consecutive s (one a lane) and four consecutive c, so its stores hit 32
+// banks.
+template <int kPass>
+__device__ __forceinline__ void stage_tables(float* tab, const float* __restrict__ lut, int b0,
+                                             int nq, int slots, int S, int K, int chunks,
+                                             int vec, int n_threads) {
+  const int lane = threadIdx.x & (kLanes - 1);
+  const int warps = n_threads / kLanes;
+  const int cq = (K + 3) / 4;
+  const int tasks = slots * chunks * cq;
+  // kInFlight tasks a warp at once: their loads are in flight together
+  constexpr int kInFlight = 4;
+  for (int first = threadIdx.x / kLanes; first < tasks; first += kInFlight * warps) {
+    float e[kInFlight][4];
+#pragma unroll
+    for (int f = 0; f < kInFlight; ++f) {
+      const int task = first + f * warps;
+      const int c0 = 4 * (task % cq);
+      const int ch = (task / cq) % chunks;
+      const int j = task / (cq * chunks);
+      const int s = ch * kLanes + lane;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) e[f][k] = 0.f;
+      if (task < tasks && s < S && j < nq) {
+        const float* src = lut + ((size_t)(b0 + j) * S + s) * K + c0;
+        if (vec) {
+          const float4 g = __ldg(reinterpret_cast<const float4*>(src));
+          e[f][0] = g.x;
+          e[f][1] = g.y;
+          e[f][2] = g.z;
+          e[f][3] = g.w;
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (c0 + k < K) e[f][k] = __ldg(src + k);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < kInFlight; ++f) {
+      const int task = first + f * warps;
+      if (task >= tasks) break;
+      const int c0 = 4 * (task % cq);
+      const int ch = (task / cq) % chunks;
+      const int j = task / (cq * chunks);
+      float* dst = tab + ((((size_t)(j / kPass) * chunks + ch) * K + c0) * kPass + j % kPass) *
+                             kLanes + lane;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (c0 + k < K) dst[(size_t)k * kPass * kLanes] = e[f][k];
+      }
+    }
+  }
+}
+
+// Shared memory of a block: 128 bytes to align the tables, the tables of
+// bq queries rounded up to whole passes, and each query's targets.
+size_t smem_bytes(int S, int K, int L, int bq, int pass) {
+  const size_t sp = (size_t)(S + kLanes - 1) / kLanes * kLanes;
+  const size_t slots = (size_t)(bq + pass - 1) / pass * pass;
+  return 128 + slots * (size_t)K * sp * sizeof(float) + (size_t)bq * L * sizeof(float4);
+}
+
+// Clamp, penalty and store of the queries in slots j0 .. j0 + kPass - 1 of
+// the block's group, at row n; sum[jj] is the tree's result. The penalty
+// reads the row's attributes once for the pass.
+template <int kPass>
+__device__ __forceinline__ void finish(const float (&sum)[kPass], int n, int j0, int nq, int b0,
+                                       int N, int L, const int* __restrict__ xa,
+                                       const float4* tg, float inv_alpha, int mode,
+                                       float* __restrict__ out) {
+  float sa[kPass];
+#pragma unroll
+  for (int jj = 0; jj < kPass; ++jj) sa[jj] = 0.f;
+  if (mode == 1) {
+    const int* a = xa + (size_t)n * L;
+    for (int l = 0; l < L; ++l) {
+      const float af = (float)__ldg(a + l);
+#pragma unroll
+      for (int jj = 0; jj < kPass; ++jj) {
+        const float4 g = tg[min(j0 + jj, nq - 1) * L + l];
+        const float gap = fmaxf(fmaxf(g.x - af, af - g.y), 0.f);
+        sa[jj] = __fadd_rn(sa[jj], __fmul_rn(gap, g.z));
+      }
+    }
+  }
+#pragma unroll
+  for (int jj = 0; jj < kPass; ++jj) {
+    if (j0 + jj >= nq) continue;
+    float sv2 = fmaxf(sum[jj], 0.f);
+    if (mode == 1) {
+      const float pen = __fadd_rn(1.f, __fmul_rn(sa[jj], inv_alpha));
+      sv2 = __fmul_rn(__fmul_rn(sv2, pen), pen);
+    }
+    out[(size_t)(b0 + j0 + jj) * N + n] = sv2;
+  }
+}
+
+// One pass over a row of kChunks <= 2 chunks whose codes (rotated) are all in
+// registers: at step t each query's class (t + lane) mod 32 is summed whole,
+// chunk 0 then chunk 1 from +0.0, and the halving tree folds it in at once
+// (level 1 at steps 16 .. 31, level 2 at 24 .. 31, and so on), so 16 tree
+// nodes a query are live instead of 32 class sums. base[c] is the shared
+// address of chunk c of the pass's tables.
+template <bool kPacked, int kPass, int kChunks>
+__device__ __forceinline__ void scan_whole(float (&sum)[kPass],
+                                           const uint32_t (&v)[kChunks][Chunk<kPacked>::kWords],
+                                           const uint32_t (&base)[kChunks], uint32_t lane4,
+                                           int rot_bits) {
+  using C = Chunk<kPacked>;
+  float node[kPass][kLanes / 2];
+#pragma unroll
+  for (int u = 0; u < C::kWords; ++u) {
+    uint32_t win[kChunks];
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      win[c] = __funnelshift_r(v[c][u], v[c][(u + 1) % C::kWords], rot_bits);
+    }
+#pragma unroll
+    for (int i = 0; i < C::kPerWord; ++i) {
+      const int t = u * C::kPerWord + i;
+      const uint32_t rot = (lane4 + 4u * t) & 127u;
+      float val[kPass];
+#pragma unroll
+      for (int jj = 0; jj < kPass; ++jj) val[jj] = 0.f;
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        const uint32_t code = (win[c] >> (C::kBits * i)) & ((1u << C::kBits) - 1u);
+        lookup<0, kPass>(val, code * (kPass * kLanes * 4u) + (rot | base[c]));
+      }
+#pragma unroll
+      for (int jj = 0; jj < kPass; ++jj) {
+        float* nd = node[jj];
+        if (t < 16) {
+          nd[t] = val[jj];
+        } else {  // the tree's levels, as soon as both halves are done
+          const int i1 = t - 16;
+          nd[i1] = __fadd_rn(nd[i1], val[jj]);
+          if (i1 >= 8) {
+            const int i2 = i1 - 8;
+            nd[i2] = __fadd_rn(nd[i2], nd[i1]);
+            if (i2 >= 4) {
+              const int i3 = i2 - 4;
+              nd[i3] = __fadd_rn(nd[i3], nd[i2]);
+              if (i3 >= 2) {
+                const int i4 = i3 - 2;
+                nd[i4] = __fadd_rn(nd[i4], nd[i3]);
+                if (i4 >= 1) nd[0] = __fadd_rn(nd[0], nd[1]);
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int jj = 0; jj < kPass; ++jj) sum[jj] = node[jj][0];
+}
+
+template <bool kPacked, int kThreads, int kPass, int kChunks>
 __global__ void __launch_bounds__(kThreads) adc_scan_kernel(
     const float* __restrict__ lut, const uint8_t* __restrict__ codes,
     const int* __restrict__ qlo, const int* __restrict__ qhi,
     const int* __restrict__ mask, const int* __restrict__ xa,
     float* __restrict__ out, int B, int N, int S, int K, int W, int L, int bq,
     float inv_alpha, int mode, int vec_lut, int vec_codes) {
+  using C = Chunk<kPacked>;
   extern __shared__ __align__(16) float smem[];
-  const int stride = S * K;  // floats between two queries' tables
-  float* lut_s = smem;
-  int* lo_s = reinterpret_cast<int*>(smem + (size_t)bq * stride);
-  int* hi_s = lo_s + bq * L;
-  int* m_s = hi_s + bq * L;
+  const int chunks = (S + kLanes - 1) / kLanes;
+  const int passes = (bq + kPass - 1) / kPass;
+  // the tables start at a 128-byte boundary of the shared window, so a
+  // chunk's base address has its low 7 bits clear
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem);
+  const uint32_t tab_s = (raw + 127u) & ~127u;
+  float* tab = smem + (tab_s - raw) / sizeof(float);
+  float4* tg = reinterpret_cast<float4*>(tab + (size_t)passes * kPass * K * chunks * kLanes);
   const int b0 = blockIdx.x * bq;
   const int nq = min(bq, B - b0);
+  const int lane = threadIdx.x & (kLanes - 1);
 
-  // ---- stage the group's tables and targets
-  const size_t n_lut = (size_t)nq * stride;
-  const float* src = lut + (size_t)b0 * stride;
-  if (vec_lut) {
-    const float4* s4 = reinterpret_cast<const float4*>(src);
-    float4* d4 = reinterpret_cast<float4*>(lut_s);
-    for (size_t i = threadIdx.x; i < n_lut / 4; i += kThreads) d4[i] = __ldg(s4 + i);
-  } else {
-    for (size_t i = threadIdx.x; i < n_lut; i += kThreads) lut_s[i] = __ldg(src + i);
-  }
+  // ---- stage the group's tables and targets (lo, hi, mask as floats)
+  stage_tables<kPass>(tab, lut, b0, nq, passes * kPass, S, K, chunks, vec_lut, kThreads);
   for (int i = threadIdx.x; i < nq * L; i += kThreads) {
     const size_t g = (size_t)b0 * L + i;
-    lo_s[i] = qlo[g];
-    hi_s[i] = qhi[g];
-    m_s[i] = mask ? mask[g] : 1;
+    tg[i] = make_float4((float)qlo[g], (float)qhi[g], mask ? (float)mask[g] : 1.f, 0.f);
   }
   __syncthreads();
 
-  // ---- one row per thread, grid-stride over the rows
-  for (int n = blockIdx.y * kThreads + threadIdx.x; n < N; n += gridDim.y * kThreads) {
-    float acc[kMaxQueries];
+  // the lane's rotation: whole words, then the code positions within one
+  const int rot_words = lane / C::kPerWord;
+  const int rot_bits = C::kBits * (lane % C::kPerWord);
+  const uint32_t lane4 = 4u * lane;
+  const uint32_t chunk_bytes = (uint32_t)K * kPass * kLanes * 4u;
+  const bool vec = vec_codes != 0;
+  const int step = gridDim.y * kThreads;
+  int n = blockIdx.y * kThreads + threadIdx.x;
+
+  if constexpr (kChunks > 0) {
+    // ---- S <= 64: the row's codes all in registers, loaded a row ahead
+    uint32_t v[kChunks][C::kWords];
+    if (n < N) {
 #pragma unroll
-    for (int j = 0; j < kMaxQueries; ++j) acc[j] = 0.f;
-    const uint8_t* row = codes + (size_t)n * W;
-    for (int w = 0; w < W; w += 4) {
-      uint32_t word = 0;
-      if (vec_codes) {
-        word = __ldg(reinterpret_cast<const unsigned int*>(row + w));
-      } else {
-        for (int t = 0; t < 4 && w + t < W; ++t) {
-          word |= (uint32_t)__ldg(row + w + t) << (8 * t);
+      for (int c = 0; c < kChunks; ++c) load_chunk<kPacked>(v[c], codes + (size_t)n * W, c, W, vec);
+    }
+    for (; n < N; n += step) {
+      uint32_t nxt[kChunks][C::kWords];
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        if (n + step < N) {
+          load_chunk<kPacked>(nxt[c], codes + (size_t)(n + step) * W, c, W, vec);
+        } else {
+#pragma unroll
+          for (int w = 0; w < C::kWords; ++w) nxt[c][w] = 0u;
         }
+        rotate_words(v[c], rot_words);
+      }
+      for (int p = 0; p < passes; ++p) {
+        uint32_t base[kChunks];
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c) base[c] = tab_s + (uint32_t)(p * kChunks + c) * chunk_bytes;
+        float sum[kPass];
+        scan_whole<kPacked, kPass, kChunks>(sum, v, base, lane4, rot_bits);
+        finish<kPass>(sum, n, p * kPass, nq, b0, N, L, xa, tg, inv_alpha, mode, out);
       }
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const uint32_t byte = (word >> (8 * t)) & 0xFFu;
-        if (kPacked) {
-          const int s = 2 * (w + t);
-          if (s < S) add_entry(acc, lut_s, s, byte & 0xFu, K, stride, nq);
-          if (s + 1 < S) add_entry(acc, lut_s, s + 1, byte >> 4, K, stride, nq);
-        } else {
-          const int s = w + t;
-          if (s < S) add_entry(acc, lut_s, s, byte, K, stride, nq);
-        }
+      for (int c = 0; c < kChunks; ++c) {
+#pragma unroll
+        for (int w = 0; w < C::kWords; ++w) v[c][w] = nxt[c][w];
       }
     }
+  } else {
+    // ---- any S: a pass walks the row's chunks, 32 class sums a query in
+    // registers, and loads the next (row, pass, chunk) item's codes while it
+    // scores the current one
+    uint32_t v[C::kWords];
+    if (n < N) load_chunk<kPacked>(v, codes + (size_t)n * W, 0, W, vec);
+    for (; n < N; n += step) {
+      for (int p = 0; p < passes; ++p) {
+        float acc[kPass][kLanes];
 #pragma unroll
-    for (int j = 0; j < kMaxQueries; ++j) {
-      if (j >= nq) continue;
-      float sv2 = fmaxf(acc[j], 0.f);
-      if (mode == 1) {
-        const int* a = xa + (size_t)n * L;
-        float sa = 0.f;
-        for (int l = 0; l < L; ++l) {
-          const float af = (float)__ldg(a + l);
-          const int q = j * L + l;
-          const float gap = fmaxf(fmaxf((float)lo_s[q] - af, af - (float)hi_s[q]), 0.f);
-          sa = __fadd_rn(sa, __fmul_rn(gap, (float)m_s[q]));
+        for (int jj = 0; jj < kPass; ++jj) {
+#pragma unroll
+          for (int t = 0; t < kLanes; ++t) acc[jj][t] = 0.f;
         }
-        const float pen = __fadd_rn(1.f, __fmul_rn(sa, inv_alpha));
-        sv2 = __fmul_rn(__fmul_rn(sv2, pen), pen);
+        for (int ch = 0; ch < chunks; ++ch) {
+          const bool last = ch + 1 == chunks;
+          const int n_next = last && p + 1 == passes ? n + step : n;
+          uint32_t nxt[C::kWords];
+          if (n_next < N) {
+            load_chunk<kPacked>(nxt, codes + (size_t)n_next * W, last ? 0 : ch + 1, W, vec);
+          } else {
+#pragma unroll
+            for (int w = 0; w < C::kWords; ++w) nxt[w] = 0u;
+          }
+          rotate_words(v, rot_words);
+          const uint32_t base = tab_s + (uint32_t)(p * chunks + ch) * chunk_bytes;
+#pragma unroll
+          for (int u = 0; u < C::kWords; ++u) {
+            const uint32_t win = __funnelshift_r(v[u], v[(u + 1) % C::kWords], rot_bits);
+#pragma unroll
+            for (int i = 0; i < C::kPerWord; ++i) {
+              const int t = u * C::kPerWord + i;
+              const uint32_t code = (win >> (C::kBits * i)) & ((1u << C::kBits) - 1u);
+              // subspace 32 * ch + (t + lane) mod 32 of the code's row
+              const uint32_t at =
+                  code * (kPass * kLanes * 4u) + (((lane4 + 4u * t) & 127u) | base);
+              float e[kPass];
+#pragma unroll
+              for (int jj = 0; jj < kPass; ++jj) e[jj] = acc[jj][t];
+              lookup<0, kPass>(e, at);
+#pragma unroll
+              for (int jj = 0; jj < kPass; ++jj) acc[jj][t] = e[jj];
+            }
+          }
+#pragma unroll
+          for (int w = 0; w < C::kWords; ++w) v[w] = nxt[w];
+        }
+        float sum[kPass];
+#pragma unroll
+        for (int jj = 0; jj < kPass; ++jj) {
+          fold<16>(acc[jj]);
+          fold<8>(acc[jj]);
+          fold<4>(acc[jj]);
+          fold<2>(acc[jj]);
+          fold<1>(acc[jj]);
+          sum[jj] = acc[jj][0];
+        }
+        finish<kPass>(sum, n, p * kPass, nq, b0, N, L, xa, tg, inv_alpha, mode, out);
       }
-      out[(size_t)(b0 + j) * N + n] = sv2;
     }
   }
 }
 
-template <bool kPacked, int kThreads>
-cudaError_t start(const void* lut, const void* codes, const void* qlo, const void* qhi,
-                  const void* mask, const void* xa, void* out, int B, int N, int S, int K,
-                  int W, int L, int bq, size_t smem, int n_sm, float inv_alpha, int mode,
-                  void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(adc_scan_kernel<kPacked, kThreads>,
+struct Args {
+  const void *lut, *codes, *qlo, *qhi, *mask, *xa;
+  void* out;
+  int B, N, S, K, W, L;
+  float inv_alpha;
+  int mode;
+  void* stream;
+};
+
+template <bool kPacked, int kThreads, int kPass, int kChunks>
+cudaError_t start(const Args& a, int bq, int blocks_per_sm, int n_sm) {
+  const size_t smem = smem_bytes(a.S, a.K, a.L, bq, kPass);
+  cudaError_t err = cudaFuncSetAttribute(adc_scan_kernel<kPacked, kThreads, kPass, kChunks>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int groups = (B + bq - 1) / bq;
-  const int tiles = (N + kThreads - 1) / kThreads;
-  int slices = (kBlocksPerSm * n_sm + groups - 1) / groups;
+  const int groups = (a.B + bq - 1) / bq;
+  const int tiles = (a.N + kThreads - 1) / kThreads;
+  int slices = (blocks_per_sm * n_sm + groups - 1) / groups;
   slices = slices < tiles ? slices : tiles;
   slices = slices < 65535 ? slices : 65535;
-  const int vec_lut = ((S * K) % 4 == 0) && ((reinterpret_cast<uintptr_t>(lut) & 15) == 0);
-  const int vec_codes = (W % 4 == 0) && ((reinterpret_cast<uintptr_t>(codes) & 3) == 0);
-  adc_scan_kernel<kPacked, kThreads>
-      <<<dim3(groups, slices), kThreads, smem, (cudaStream_t)stream>>>(
-          (const float*)lut, (const uint8_t*)codes, (const int*)qlo, (const int*)qhi,
-          (const int*)mask, (const int*)xa, (float*)out, B, N, S, K, W, L, bq, inv_alpha, mode,
-          vec_lut, vec_codes);
+  const int vec_lut = (a.K % 4 == 0) && ((reinterpret_cast<uintptr_t>(a.lut) & 15) == 0);
+  const int vec_codes = (a.W % 16 == 0) && ((reinterpret_cast<uintptr_t>(a.codes) & 15) == 0);
+  adc_scan_kernel<kPacked, kThreads, kPass, kChunks>
+      <<<dim3(groups, slices), kThreads, smem, (cudaStream_t)a.stream>>>(
+          (const float*)a.lut, (const uint8_t*)a.codes, (const int*)a.qlo, (const int*)a.qhi,
+          (const int*)a.mask, (const int*)a.xa, (float*)a.out, a.B, a.N, a.S, a.K, a.W, a.L,
+          bq, a.inv_alpha, a.mode, vec_lut, vec_codes);
   return cudaGetLastError();
 }
 
-template <bool kPacked>
-int launch(const void* lut, const void* codes, const void* qlo, const void* qhi,
-           const void* mask, const void* xa, void* out, int B, int N, int S, int K,
-           int L, float inv_alpha, int mode, void* stream) {
-  if (B <= 0 || N <= 0) return 0;
-  if (S <= 0 || K <= 0 || K > 256 || L < 0 || (kPacked && K != 16)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int W = kPacked ? (S + 1) / 2 : S;
-  int dev = 0, smem_max = 0, smem_sm = 0, n_sm = 0;
+// The kernel for the row's chunk count: whole rows in registers up to two
+// chunks (S <= 64), the chunk-by-chunk path beyond.
+template <bool kPacked, int kThreads, int kPass>
+cudaError_t start_rows(const Args& a, int bq, int blocks_per_sm, int n_sm) {
+  const int chunks = (a.S + kLanes - 1) / kLanes;
+  if (chunks == 1) return start<kPacked, kThreads, kPass, 1>(a, bq, blocks_per_sm, n_sm);
+  if (chunks == 2) return start<kPacked, kThreads, kPass, 2>(a, bq, blocks_per_sm, n_sm);
+  return start<kPacked, 512, 1, 0>(a, bq, blocks_per_sm, n_sm);
+}
+
+// (shared memory a block may opt into, SMs), or an error.
+cudaError_t device_limits(int* smem_max, int* n_sm) {
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    err = cudaDeviceGetAttribute(smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-  }
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  }
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
+  return err;
+}
+
+bool valid(bool packed, const Args& a) {
+  return a.S > 0 && a.K > 0 && a.K <= 256 && a.L >= 0 && (!packed || a.K == 16);
+}
+
+// The launchers' pick: as many tables as fit a block, up to kMaxQueries,
+// scored 3 a pass (fewer where fewer fit); past S = 64, one a pass.
+template <bool kPacked>
+int launch(const Args& a) {
+  if (a.B <= 0 || a.N <= 0) return 0;
+  if (!valid(kPacked, a)) return (int)cudaErrorInvalidValue;
+  int smem_max = 0, n_sm = 0;
+  cudaError_t err = device_limits(&smem_max, &n_sm);
   if (err != cudaSuccess) return (int)err;
-  const size_t per_query = ((size_t)S * K + 3 * (size_t)L) * sizeof(float);
-  int bq = (int)((size_t)smem_max / per_query);
+  const int whole = a.S <= 2 * kLanes;
+  const int most = whole ? 3 : 1;
+  int bq = kMaxQueries < a.B ? kMaxQueries : a.B;
+  while (bq > 0 && smem_bytes(a.S, a.K, a.L, bq, bq < most ? bq : most) > (size_t)smem_max) --bq;
   if (bq < 1) return (int)cudaErrorInvalidValue;  // one query's tables exceed shared memory
-  bq = bq < kMaxQueries ? bq : kMaxQueries;
-  bq = bq < B ? bq : B;
-  const size_t smem = per_query * bq;
-  // one block per SM by shared memory: give it the most threads a block can
-  // have; otherwise several 256-thread blocks share the SM
-  const bool alone = 2 * smem > (size_t)smem_sm;
-  return (int)(alone ? start<kPacked, 1024>(lut, codes, qlo, qhi, mask, xa, out, B, N, S, K, W,
-                                            L, bq, smem, n_sm, inv_alpha, mode, stream)
-                     : start<kPacked, 256>(lut, codes, qlo, qhi, mask, xa, out, B, N, S, K, W,
-                                           L, bq, smem, n_sm, inv_alpha, mode, stream));
+  if (!whole) return (int)start<kPacked, 512, 1, 0>(a, bq, kBlocksPerSm, n_sm);
+  // three 8-bit passes need more than the 128 registers a thread of 512 has
+  if (bq >= 3) return (int)start_rows<kPacked, kPacked ? 512 : 384, 3>(a, bq, kBlocksPerSm, n_sm);
+  if (bq == 2) return (int)start_rows<kPacked, 512, 2>(a, bq, kBlocksPerSm, n_sm);
+  return (int)start_rows<kPacked, 512, 1>(a, bq, kBlocksPerSm, n_sm);
+}
+
+Args make_args(const void* lut, const void* codes, const void* qlo, const void* qhi,
+               const void* mask, const void* xa, void* out, int B, int N, int S, int K, int L,
+               float inv_alpha, int mode, void* stream, bool packed) {
+  return Args{lut, codes, qlo, qhi, mask, xa, out, B, N, S, K, packed ? (S + 1) / 2 : S, L,
+              inv_alpha, mode, stream};
 }
 
 }  // namespace
@@ -224,14 +562,14 @@ extern "C" int adc_scan_launch(const void* lut, const void* codes, const void* q
                                const void* qhi, const void* mask, const void* xa, void* out,
                                int B, int N, int S, int K, int L, float inv_alpha, int mode,
                                void* stream) {
-  return launch<false>(lut, codes, qlo, qhi, mask, xa, out, B, N, S, K, L, inv_alpha, mode,
-                       stream);
+  return launch<false>(make_args(lut, codes, qlo, qhi, mask, xa, out, B, N, S, K, L, inv_alpha,
+                                 mode, stream, false));
 }
 
 extern "C" int adc_scan4_launch(const void* lut, const void* codes, const void* qlo,
                                 const void* qhi, const void* mask, const void* xa, void* out,
                                 int B, int N, int S, int K, int L, float inv_alpha, int mode,
                                 void* stream) {
-  return launch<true>(lut, codes, qlo, qhi, mask, xa, out, B, N, S, K, L, inv_alpha, mode,
-                      stream);
+  return launch<true>(make_args(lut, codes, qlo, qhi, mask, xa, out, B, N, S, K, L, inv_alpha,
+                                mode, stream, true));
 }

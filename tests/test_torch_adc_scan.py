@@ -7,7 +7,10 @@ results are equal; on float tables the one-hot product of the Pallas body
 sums in another order, so those compare within rtol 1e-5 (atol 1e-4, the
 reference's own bar). Inside the port, the 4-bit scanner on packed codes
 equals the 8-bit one on the unpacked codes bit for bit, and CPU tensors
-launch nothing."""
+launch nothing. The port's own sum order (class sums over s mod 32, then a
+halving tree; ``kernels/adc_scan/ref.py``) is held bit for bit against a
+float32 numpy version of it, and the tree's invariance under a rotation of
+the class sums, which the CUDA kernel relies on, is checked directly."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -122,3 +125,59 @@ def test_operands_are_checked():
         ops.adc_scan_scores(t(lut), t(codes.astype(np.int32)), t(qa), t(xa))
     with pytest.raises(ValueError):
         ops.adc_scan_scores(t(lut), t(codes), t(qa), t(xa), mode="nhq")
+
+
+#: subspace counts around the 32 residue classes: fewer than 32 (empty
+#: classes), one class each, a partial second chunk, several chunks
+ORDER_S = [1, 5, 7, 8, 31, 32, 33, 64, 65, 200]
+
+
+def halving_tree(c):
+    """c[..., i] + c[..., i + h] for i < h, h = 16 .. 1, in float32."""
+    h = c.shape[-1] // 2
+    while h >= 1:
+        c = c[..., :h] + c[..., h:2 * h]
+        h //= 2
+    return c[..., 0]
+
+
+def numpy_order_sum(lut, codes):
+    """The scanners' stated order in float32 numpy: for each class r = s mod
+    32 the entries in ascending s from +0.0, then the halving tree."""
+    b, s, _ = lut.shape
+    c = np.zeros((b, codes.shape[0], 32), np.float32)
+    for si in range(s):
+        c[:, :, si % 32] = c[:, :, si % 32] + lut[:, si, :][:, codes[:, si]]
+    return halving_tree(c)
+
+
+@pytest.mark.parametrize("k", [16, 256])
+@pytest.mark.parametrize("s", ORDER_S)
+def test_plain_version_uses_the_stated_order_bitwise(s, k):
+    lut, codes, qa, xa, _ = case(3, 70, s, k, 2, seed=s + k, integer=False, kind="point")
+    got = ops.adc_scan_scores(t(lut), t(codes), t(qa), t(xa), ALPHA, "l2").numpy()
+    want = np.maximum(numpy_order_sum(lut, codes), np.float32(0))
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("rotation", range(32))
+def test_halving_tree_is_invariant_under_rotation_bitwise(rotation):
+    """The kernel's lane l holds class (t + l) mod 32 in accumulator t: the
+    tree over a rotated vector of class sums gives the same bits."""
+    rng = np.random.default_rng(rotation)
+    # magnitudes over several decades, so a reordered sum would round otherwise
+    c = (rng.uniform(0, 1, (200, 32)) * 10.0 ** rng.integers(-3, 4, (200, 32))).astype(np.float32)
+    want = halving_tree(c)
+    got = halving_tree(np.roll(c, -rotation, axis=1))
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("s", ORDER_S)
+def test_packed_plain_version_equals_unpacked_at_every_s(s):
+    lut, codes, qa, xa, mask = case(3, 90, s, 16, 3, seed=s, integer=False, kind="masked")
+    for mode in ("auto", "l2"):
+        got = ops.adc_scan4_scores(t(lut), pack_nibbles(t(codes)), t(qa), t(xa), ALPHA, mode,
+                                   t(mask))
+        want = ops.adc_scan_scores(t(lut), t(codes), t(qa), t(xa), ALPHA, mode, t(mask))
+        assert torch.equal(got, want)

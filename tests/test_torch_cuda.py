@@ -211,19 +211,26 @@ def adc_inputs(b, n, s, k, l, seed, dev):
 
 @pytest.mark.parametrize("mode", ["auto", "l2"])
 @pytest.mark.parametrize("kind", ["point", "interval", "masked"])
-@pytest.mark.parametrize("s", [64, 7])
+@pytest.mark.parametrize("s", [1, 7, 33, 64, 65, 200])
 def test_adc_kernels_bitwise_equal_plain_versions(cuda_dev, kind, mode, s):
+    """S below one 32-subspace chunk, at one, across a partial second chunk,
+    and S = 200 at K = 256 only (224 padded subspaces: 224 KB of table, one
+    query a block; the 4-bit scanner is checked up to S = 65)."""
     lut, codes, qa, xa, iv, mask = adc_inputs(130, 3001, s, 256, 5, seed=s, dev=cuda_dev)
-    lut4, codes4 = lut[:, :, :16].contiguous(), (codes & 0xF).contiguous()
     qa_t = iv if kind == "interval" else qa
     mk = mask if kind == "masked" else None
     a0, a40 = adc_scan_scores.launches, adc_scan4_scores.launches
     got = adc_scan_scores(lut, codes, qa_t, xa, ALPHA, mode, mk)
+    torch.cuda.synchronize()
+    assert adc_scan_scores.launches == a0 + 1
+    assert torch.equal(got, adc_scan_ref(lut, codes, qa_t, xa, ALPHA, mode, mk))
+    if s == 200:
+        return
+    lut4, codes4 = lut[:, :, :16].contiguous(), (codes & 0xF).contiguous()
     packed = pack_nibbles(codes4)
     got4 = adc_scan4_scores(lut4, packed, qa_t, xa, ALPHA, mode, mk)
     torch.cuda.synchronize()
-    assert (adc_scan_scores.launches, adc_scan4_scores.launches) == (a0 + 1, a40 + 1)
-    assert torch.equal(got, adc_scan_ref(lut, codes, qa_t, xa, ALPHA, mode, mk))
+    assert adc_scan4_scores.launches == a40 + 1
     assert torch.equal(got4, adc_scan4_ref(lut4, packed, qa_t, xa, ALPHA, mode, mk))
     # the packed scanner equals the 8-bit one on the same codes unpacked
     assert torch.equal(got4, adc_scan_scores(lut4, codes4, qa_t, xa, ALPHA, mode, mk))
@@ -243,6 +250,36 @@ def test_adc_kernels_batch_invariant_bitwise(cuda_dev, mode):
         one4 = adc_scan4_scores(lut4[sl].contiguous(), packed, iv[sl].contiguous(), xa, ALPHA,
                                 mode, mask[sl].contiguous())
         assert torch.equal(one[0], full[r]) and torch.equal(one4[0], full4[r])
+
+
+@pytest.mark.parametrize("mode", ["auto", "l2"])
+def test_adc_kernels_rows_equal_single_row_calls(cuda_dev, mode):
+    """B = 130 (a ragged last query group) against single-query calls."""
+    lut, codes, qa, xa, iv, mask = adc_inputs(130, 2003, 64, 256, 5, seed=13, dev=cuda_dev)
+    lut4, packed = lut[:, :, :16].contiguous(), pack_nibbles(codes & 0xF)
+    full = adc_scan_scores(lut, codes, iv, xa, ALPHA, mode, mask)
+    full4 = adc_scan4_scores(lut4, packed, iv, xa, ALPHA, mode, mask)
+    for r in (0, 77, 129):
+        sl = slice(r, r + 1)
+        one = adc_scan_scores(lut[sl].contiguous(), codes, iv[sl].contiguous(), xa, ALPHA, mode,
+                              mask[sl].contiguous())
+        one4 = adc_scan4_scores(lut4[sl].contiguous(), packed, iv[sl].contiguous(), xa, ALPHA,
+                                mode, mask[sl].contiguous())
+        assert torch.equal(one[0], full[r]) and torch.equal(one4[0], full4[r])
+
+
+@pytest.mark.parametrize("mode", ["auto", "l2"])
+@pytest.mark.parametrize("a", [1, 77, 1001])
+def test_adc_kernels_position_invariant_bitwise(cuda_dev, mode, a):
+    """Scanning codes[a:] and xa[a:] (odd a: each row moves to another lane,
+    block and slice) gives the columns a: of the full scan bit for bit."""
+    lut, codes, qa, xa, iv, mask = adc_inputs(48, 3001, 64, 256, 5, seed=a, dev=cuda_dev)
+    lut4, packed = lut[:, :, :16].contiguous(), pack_nibbles(codes & 0xF)
+    full = adc_scan_scores(lut, codes, iv, xa, ALPHA, mode, mask)
+    full4 = adc_scan4_scores(lut4, packed, iv, xa, ALPHA, mode, mask)
+    tail = adc_scan_scores(lut, codes[a:], iv, xa[a:], ALPHA, mode, mask)
+    tail4 = adc_scan4_scores(lut4, packed[a:], iv, xa[a:], ALPHA, mode, mask)
+    assert torch.equal(tail, full[:, a:]) and torch.equal(tail4, full4[:, a:])
 
 
 def test_quantized_search_on_card_equals_cpu_on_integer_data(cuda_dev):

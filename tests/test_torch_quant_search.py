@@ -13,6 +13,7 @@ other's saved stores. On float data with a trained store, recall@10 must
 sit within 0.005 of the reference's. The executor's widening and the
 planner's probe are held to the reference's on the quantized index."""
 import dataclasses
+import functools
 
 import pytest
 
@@ -213,13 +214,20 @@ def test_every_codec_builds_and_searches_on_the_cpu(mode):
         assert bool(torch.isfinite(res.sqdists).all()) and bool((res.ids >= -1).all())
 
 
+@functools.lru_cache(maxsize=None)
+def float_case(mode: str):
+    """A reference index with a trained ``mode`` store on float data, and
+    the port's index over the same graph and store."""
+    f, a, qf, qa = dataset(n=2048, n_queries=32, integer=False, seed=5)
+    jidx = JIndex.build(f, a, JHelp(**HELP_KW), quant_cfg=jq.QuantConfig(mode, pq_subspaces=32))
+    return f, a, qf, qa, jidx, port_index(jidx, to_port(jidx.quant))
+
+
 @pytest.mark.parametrize("mode", ["pq", "pq4"])
 def test_float_recall_within_half_a_point(mode):
     """A trained reference store on float data, searched by both packages:
     recall@10 against each package's exact oracle within 0.005."""
-    f, a, qf, qa = dataset(n=2048, n_queries=32, integer=False, seed=5)
-    jidx = JIndex.build(f, a, JHelp(**HELP_KW), quant_cfg=jq.QuantConfig(mode, pq_subspaces=32))
-    tidx = port_index(jidx, to_port(jidx.quant))
+    f, a, qf, qa, jidx, tidx = float_case(mode)
     jeng, teng = JEngine(jidx), TEngine(tidx)
     jo = jbase.brute_force_hybrid(jidx.features, jidx.attrs, jnp.asarray(qf), jnp.asarray(qa), 10)
     to = tbase.brute_force_hybrid(tidx.features, tidx.attrs, qf, qa, 10)
@@ -230,3 +238,21 @@ def test_float_recall_within_half_a_point(mode):
         t_recall = tbase.recall_at_k(tres.ids, to.ids, 10)
         assert abs(j_recall - t_recall) <= 0.005, (backend, j_recall, t_recall)
         assert t_recall > 0.5
+
+
+@pytest.mark.parametrize("mode", ["pq", "pq4"])
+def test_float_brute_one_of_recall_within_half_a_point(mode):
+    """Brute ONE_OF over a trained store on float data: the port's recall@10
+    against its exact brute search sits within 0.005 of the reference's
+    against its own. The 4-bit codecs' lower ONE_OF recall at N = 1M on the
+    card is the codec's, not the port's."""
+    f, a, qf, qa, jidx, tidx = float_case(mode)
+    jb = predicate_batches(qf, qa, jquery)["one_of"]
+    tb = predicate_batches(qf, qa, tquery)["one_of"]
+    jo = JEngine(dataclasses.replace(jidx, quant=None)).search(jb, JParams(k=10, backend="brute"))
+    to = TEngine(port_index(jidx, None)).search(tb, TParams(k=10, backend="brute"))
+    jres = JEngine(jidx).search(jb, JParams(k=10, backend="brute"))
+    tres = TEngine(tidx).search(tb, TParams(k=10, backend="brute"))
+    j_recall = jbase.recall_at_k(jres.ids, jo.ids, 10)
+    t_recall = tbase.recall_at_k(tres.ids, to.ids, 10)
+    assert abs(j_recall - t_recall) <= 0.005, (j_recall, t_recall)
