@@ -62,17 +62,18 @@
 //   ahead of the one it scores, rotates them by l code positions in
 //   registers (word selects, then one funnel shift a word) and takes each
 //   code with a shift and a mask.
-// - kPass queries share one pass over a row: the code, its rotated subspace
-//   and its address are computed once a step for all of them. Up to S = 64
-//   (two chunks) the row's codes stay in registers for all passes, each
-//   step sums its class whole (chunk 0, then chunk 1) and the tree folds it
-//   in at once, so a query keeps 16 tree nodes live, not 32 class sums;
-//   beyond, a pass walks the chunks with 32 class sums a query and one
-//   query a pass. With three tables at K = 256, S = 64 (192 KB) a block fills
-//   an SM's shared memory; at K = 16 a block holds kMaxQueries tables.
-// - Registers set the threads: three passes of 8-bit codes take 384 threads
-//   (up to 170 registers each), the rest 512 (variant_sweep.py times the
-//   others).
+// - kPass queries share one pass over a row (3 for 8-bit codes, 4 for
+//   packed ones): the code, its rotated subspace and its address are
+//   computed once a step for all of them. Up to S = 64 (two chunks) the
+//   row's codes stay in registers for all passes, each step sums its class
+//   whole (chunk 0, then chunk 1) and the tree is evaluated depth first, so
+//   the classes come in bit-reversed order and each node is added as soon
+//   as its halves are done: at most six partial sums a query are live.
+//   Beyond S = 64 a pass walks the chunks with 32 class sums a query, one
+//   query a pass. With three tables at K = 256, S = 64 (192 KB) a block
+//   fills an SM's shared memory; at K = 16 a block holds kMaxQueries.
+// - Registers set the threads: 512 a block, up to 128 registers each; more
+//   threads spill (variant_sweep.py times the others).
 // - grid.x runs over query groups and grid.y over row slices, so blocks with
 //   neighbouring ids scan the same rows and the codes come from L2 after the
 //   first read; consecutive lanes own consecutive rows, so the score writes
@@ -84,8 +85,9 @@ namespace {
 
 constexpr int kLanes = 32;
 // tables a block stages at most (fewer where they do not fit): 4 passes of
-// 3 at K = 16 (variant_sweep.py: 12 beat 15, 16 and 24 at S = 64)
-constexpr int kMaxQueries = 12;
+// 4 at K = 16 (variant_sweep.py at S = 64: 16 in passes of 4 beat 12 in
+// passes of 3)
+constexpr int kMaxQueries = 16;
 // blocks aimed for per SM, over all query groups and row slices
 constexpr int kBlocksPerSm = 16;
 
@@ -278,65 +280,50 @@ __device__ __forceinline__ void finish(const float (&sum)[kPass], int n, int j0,
   }
 }
 
-// One pass over a row of kChunks <= 2 chunks whose codes (rotated) are all in
-// registers: at step t each query's class (t + lane) mod 32 is summed whole,
-// chunk 0 then chunk 1 from +0.0, and the halving tree folds it in at once
-// (level 1 at steps 16 .. 31, level 2 at 24 .. 31, and so on), so 16 tree
-// nodes a query are live instead of 32 class sums. base[c] is the shared
-// address of chunk c of the pass's tables.
-template <bool kPacked, int kPass, int kChunks>
-__device__ __forceinline__ void scan_whole(float (&sum)[kPass],
-                                           const uint32_t (&v)[kChunks][Chunk<kPacked>::kWords],
-                                           const uint32_t (&base)[kChunks], uint32_t lane4,
-                                           int rot_bits) {
+// A row of kChunks <= 2 chunks with its codes in registers: win[c][u] holds
+// the codes of steps P*u .. P*u + P - 1 of chunk c (P codes a word), already
+// rotated by the lane; base[c] is the shared address of chunk c of the
+// pass's tables.
+template <bool kPacked, int kChunks>
+struct Row {
+  uint32_t win[kChunks][Chunk<kPacked>::kWords];
+  uint32_t base[kChunks];
+  uint32_t lane4;
+};
+
+// Class T of the pass's kPass queries, whole: chunk 0, then chunk 1, from
+// +0.0. Step T of the lane looks up subspace 32 * c + (T + lane) mod 32.
+template <int T, bool kPacked, int kPass, int kChunks>
+__device__ __forceinline__ void class_sum(float (&val)[kPass], const Row<kPacked, kChunks>& r) {
   using C = Chunk<kPacked>;
-  float node[kPass][kLanes / 2];
+  const uint32_t rot = (r.lane4 + 4u * T) & 127u;
 #pragma unroll
-  for (int u = 0; u < C::kWords; ++u) {
-    uint32_t win[kChunks];
+  for (int jj = 0; jj < kPass; ++jj) val[jj] = 0.f;
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      win[c] = __funnelshift_r(v[c][u], v[c][(u + 1) % C::kWords], rot_bits);
-    }
-#pragma unroll
-    for (int i = 0; i < C::kPerWord; ++i) {
-      const int t = u * C::kPerWord + i;
-      const uint32_t rot = (lane4 + 4u * t) & 127u;
-      float val[kPass];
-#pragma unroll
-      for (int jj = 0; jj < kPass; ++jj) val[jj] = 0.f;
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const uint32_t code = (win[c] >> (C::kBits * i)) & ((1u << C::kBits) - 1u);
-        lookup<0, kPass>(val, code * (kPass * kLanes * 4u) + (rot | base[c]));
-      }
-#pragma unroll
-      for (int jj = 0; jj < kPass; ++jj) {
-        float* nd = node[jj];
-        if (t < 16) {
-          nd[t] = val[jj];
-        } else {  // the tree's levels, as soon as both halves are done
-          const int i1 = t - 16;
-          nd[i1] = __fadd_rn(nd[i1], val[jj]);
-          if (i1 >= 8) {
-            const int i2 = i1 - 8;
-            nd[i2] = __fadd_rn(nd[i2], nd[i1]);
-            if (i2 >= 4) {
-              const int i3 = i2 - 4;
-              nd[i3] = __fadd_rn(nd[i3], nd[i2]);
-              if (i3 >= 2) {
-                const int i4 = i3 - 2;
-                nd[i4] = __fadd_rn(nd[i4], nd[i3]);
-                if (i4 >= 1) nd[0] = __fadd_rn(nd[0], nd[1]);
-              }
-            }
-          }
-        }
-      }
-    }
+  for (int c = 0; c < kChunks; ++c) {
+    const uint32_t word = r.win[c][T / C::kPerWord];
+    const uint32_t code = kPacked ? (word >> (4 * (T % C::kPerWord))) & 0xFu
+                                  : __byte_perm(word, 0u, 0x4440u + T % C::kPerWord);
+    lookup<0, kPass>(val, code * (kPass * kLanes * 4u) + (rot | r.base[c]));
   }
+}
+
+// Node (H, I) of the halving tree, H = 32 .. 1: the class sum I at H = 32,
+// else node (2H, I) + node (2H, I + H). Node (1, 0) is the score. Written
+// depth first, the classes come in bit-reversed order and each node is
+// added as soon as its halves are done, so at most six partial sums a query
+// are live; every node adds the same two operands as the canonical tree.
+template <int H, int I, bool kPacked, int kPass, int kChunks>
+__device__ __forceinline__ void tree_node(float (&out)[kPass], const Row<kPacked, kChunks>& r) {
+  if constexpr (H == kLanes) {
+    class_sum<I, kPacked, kPass, kChunks>(out, r);
+  } else {
+    float hi[kPass];
+    tree_node<2 * H, I, kPacked, kPass, kChunks>(out, r);
+    tree_node<2 * H, I + H, kPacked, kPass, kChunks>(hi, r);
 #pragma unroll
-  for (int jj = 0; jj < kPass; ++jj) sum[jj] = node[jj][0];
+    for (int jj = 0; jj < kPass; ++jj) out[jj] = __fadd_rn(out[jj], hi[jj]);
+  }
 }
 
 template <bool kPacked, int kThreads, int kPass, int kChunks>
@@ -396,18 +383,25 @@ __global__ void __launch_bounds__(kThreads) adc_scan_kernel(
         }
         rotate_words(v[c], rot_words);
       }
-      for (int p = 0; p < passes; ++p) {
-        uint32_t base[kChunks];
-#pragma unroll
-        for (int c = 0; c < kChunks; ++c) base[c] = tab_s + (uint32_t)(p * kChunks + c) * chunk_bytes;
-        float sum[kPass];
-        scan_whole<kPacked, kPass, kChunks>(sum, v, base, lane4, rot_bits);
-        finish<kPass>(sum, n, p * kPass, nq, b0, N, L, xa, tg, inv_alpha, mode, out);
-      }
+      Row<kPacked, kChunks> r;
+      r.lane4 = lane4;
 #pragma unroll
       for (int c = 0; c < kChunks; ++c) {
 #pragma unroll
+        for (int u = 0; u < C::kWords; ++u) {
+          r.win[c][u] = __funnelshift_r(v[c][u], v[c][(u + 1) % C::kWords], rot_bits);
+        }
+#pragma unroll
         for (int w = 0; w < C::kWords; ++w) v[c][w] = nxt[c][w];
+      }
+      for (int p = 0; p < passes; ++p) {
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c) {
+          r.base[c] = tab_s + (uint32_t)(p * kChunks + c) * chunk_bytes;
+        }
+        float sum[kPass];
+        tree_node<1, 0, kPacked, kPass, kChunks>(sum, r);
+        finish<kPass>(sum, n, p * kPass, nq, b0, N, L, xa, tg, inv_alpha, mode, out);
       }
     }
   } else {
@@ -529,7 +523,8 @@ bool valid(bool packed, const Args& a) {
 }
 
 // The launchers' pick: as many tables as fit a block, up to kMaxQueries,
-// scored 3 a pass (fewer where fewer fit); past S = 64, one a pass.
+// scored 3 a pass (4 for packed codes, whose rows take half the registers)
+// or fewer where fewer fit; past S = 64, one a pass.
 template <bool kPacked>
 int launch(const Args& a) {
   if (a.B <= 0 || a.N <= 0) return 0;
@@ -538,14 +533,17 @@ int launch(const Args& a) {
   cudaError_t err = device_limits(&smem_max, &n_sm);
   if (err != cudaSuccess) return (int)err;
   const int whole = a.S <= 2 * kLanes;
-  const int most = whole ? 3 : 1;
+  const int most = !whole ? 1 : kPacked ? 4 : 3;
   int bq = kMaxQueries < a.B ? kMaxQueries : a.B;
   while (bq > 0 && smem_bytes(a.S, a.K, a.L, bq, bq < most ? bq : most) > (size_t)smem_max) --bq;
   if (bq < 1) return (int)cudaErrorInvalidValue;  // one query's tables exceed shared memory
+  const int pass = bq < most ? bq : most;
   if (!whole) return (int)start<kPacked, 512, 1, 0>(a, bq, kBlocksPerSm, n_sm);
-  // three 8-bit passes need more than the 128 registers a thread of 512 has
-  if (bq >= 3) return (int)start_rows<kPacked, kPacked ? 512 : 384, 3>(a, bq, kBlocksPerSm, n_sm);
-  if (bq == 2) return (int)start_rows<kPacked, 512, 2>(a, bq, kBlocksPerSm, n_sm);
+  if constexpr (kPacked) {
+    if (pass == 4) return (int)start_rows<kPacked, 512, 4>(a, bq, kBlocksPerSm, n_sm);
+  }
+  if (pass >= 3) return (int)start_rows<kPacked, 512, 3>(a, bq, kBlocksPerSm, n_sm);
+  if (pass == 2) return (int)start_rows<kPacked, 512, 2>(a, bq, kBlocksPerSm, n_sm);
   return (int)start_rows<kPacked, 512, 1>(a, bq, kBlocksPerSm, n_sm);
 }
 
