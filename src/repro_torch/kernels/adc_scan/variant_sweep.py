@@ -44,10 +44,10 @@ from repro_torch.quant import pack_nibbles
 #: (tables a block, threads a block, queries a pass, blocks aimed for per SM),
 #: each at S = 64: two chunks, the rows' codes in registers
 VARIANTS = {
-    "adc_scan": ((3, 512, 3, 16), (3, 384, 3, 16), (3, 640, 3, 16), (2, 512, 2, 16),
-                 (2, 768, 2, 16), (3, 512, 3, 8), (3, 512, 3, 32)),
-    "adc_scan4": ((16, 512, 4, 16), (12, 512, 3, 16), (12, 384, 3, 16), (16, 768, 4, 16),
-                  (8, 512, 4, 16), (24, 512, 4, 16), (16, 512, 4, 8), (16, 512, 4, 32)),
+    "adc_scan": ((3, 512, 3, 8), (3, 512, 3, 16), (3, 512, 3, 4), (3, 384, 3, 8),
+                 (3, 640, 3, 8), (2, 512, 2, 8), (2, 768, 2, 8)),
+    "adc_scan4": ((16, 512, 4, 8), (16, 512, 4, 16), (16, 512, 4, 4), (12, 512, 3, 8),
+                  (8, 512, 4, 8), (24, 512, 4, 8), (16, 384, 4, 8), (16, 768, 4, 8)),
 }
 B, N_ROWS, S, ATTRS = 128, 1_000_000, 64, 5
 ALPHA = 0.8

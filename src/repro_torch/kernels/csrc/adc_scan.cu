@@ -88,8 +88,9 @@ constexpr int kLanes = 32;
 // 4 at K = 16 (variant_sweep.py at S = 64: 16 in passes of 4 beat 12 in
 // passes of 3)
 constexpr int kMaxQueries = 16;
-// blocks aimed for per SM, over all query groups and row slices
-constexpr int kBlocksPerSm = 16;
+// blocks aimed for per SM, over all query groups and row slices (8 beat 16
+// and 32 in variant_sweep.py: each block stages its tables once)
+constexpr int kBlocksPerSm = 8;
 
 template <bool kPacked>
 struct Chunk {  // the codes of 32 consecutive subspaces of one row
@@ -497,14 +498,11 @@ cudaError_t start(const Args& a, int bq, int blocks_per_sm, int n_sm) {
   return cudaGetLastError();
 }
 
-// The kernel for the row's chunk count: whole rows in registers up to two
-// chunks (S <= 64), the chunk-by-chunk path beyond.
+// The whole-row kernel for S <= 64: one chunk or two.
 template <bool kPacked, int kThreads, int kPass>
 cudaError_t start_rows(const Args& a, int bq, int blocks_per_sm, int n_sm) {
-  const int chunks = (a.S + kLanes - 1) / kLanes;
-  if (chunks == 1) return start<kPacked, kThreads, kPass, 1>(a, bq, blocks_per_sm, n_sm);
-  if (chunks == 2) return start<kPacked, kThreads, kPass, 2>(a, bq, blocks_per_sm, n_sm);
-  return start<kPacked, 512, 1, 0>(a, bq, blocks_per_sm, n_sm);
+  return a.S <= kLanes ? start<kPacked, kThreads, kPass, 1>(a, bq, blocks_per_sm, n_sm)
+                       : start<kPacked, kThreads, kPass, 2>(a, bq, blocks_per_sm, n_sm);
 }
 
 // (shared memory a block may opt into, SMs), or an error.
