@@ -181,3 +181,19 @@ def test_packed_plain_version_equals_unpacked_at_every_s(s):
                                    t(mask))
         want = ops.adc_scan_scores(t(lut), t(codes), t(qa), t(xa), ALPHA, mode, t(mask))
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("s", [7, 65])
+def test_plain_version_row_chunks_change_no_bit(s, monkeypatch):
+    """The plain version gathers rows in chunks (``CHUNK_ELEMENTS``); chunks
+    of 5 rows, a ragged last one included, give the same bits."""
+    from repro_torch.kernels.adc_scan import ref
+
+    lut, codes, qa, xa, mask = case(3, 83, s, 256, 3, seed=s, integer=False, kind="masked")
+    whole = ops.adc_scan_scores(t(lut), t(codes), t(qa), t(xa), ALPHA, "auto", t(mask))
+    monkeypatch.setattr(ref, "CHUNK_ELEMENTS", 3 * ref.CLASSES * 5)
+    chunked = ops.adc_scan_scores(t(lut), t(codes), t(qa), t(xa), ALPHA, "auto", t(mask))
+    assert torch.equal(chunked, whole)
+    want = np.maximum(numpy_order_sum(lut, codes), np.float32(0))
+    l2 = ops.adc_scan_scores(t(lut), t(codes), t(qa), t(xa), ALPHA, "l2").numpy()
+    np.testing.assert_array_equal(l2.view(np.uint32), want.view(np.uint32))
