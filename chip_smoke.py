@@ -21,7 +21,7 @@ Phases:
      version; fused_auto in auto mode at L in {97, 200} (above its staged
      attributes) on integer data bit for bit at B in {1, 49, 130};
      fused_auto timed in both modes at B=32 and B=64 (its narrow and middle
-     tiles); fused_auto on integer-valued operands bit for bit against its
+     tiles), beside torch.cdist at the same shapes; fused_auto on integer-valued operands bit for bit against its
      plain version at B in {1, 16, 17, 48, 49, 64, 65, 128, 512} and M in
      {10, 128} (each tile of the kernel on both sides of its bounds), and
      rows of B=128 and B=512 batches against single-row calls bit for bit;
@@ -40,12 +40,20 @@ Phases:
      graph backend and on the brute oracle for MATCH, subset, ONE_OF and
      BETWEEN batches of 128 (recall@10, latency, QPS, evals, hops), a pool
      sweep for MATCH and one auto-planned search (the planner's probe).
-     Then the quantized slice on the same graph: each codec (sq8, pq, pq4,
+     Then serving on the same engine: 1,024 requests from 4 tenants (the
+     four predicate kinds in turn, Poisson arrivals at 8,000 a second on
+     serve_loop's virtual clock, window 2 ms, buckets 1/8/32/128) through
+     serve_loop on each backend, every response Completed and every 16th
+     equal bit for bit to its query searched alone; the first 512 again
+     through a ThreadedServer fed by 4 client threads, each answer equal to
+     serve_loop's, and its metrics endpoint scraped (/metrics and
+     /metrics.json); latency percentiles, service ms by bucket, fill,
+     plan-cache hit rate and launches printed. Then the quantized slice on the same graph: each codec (sq8, pq, pq4,
      opq-pq, opq-pq4; S=64) trained and attached to the index, MATCH and
      ONE_OF searched on both backends against the exact oracle (brute-ADC
      MATCH recall@10 must reach 0.5 for the PQ family). Last, profiled
-     graph and brute searches, exact and pq (device busy share, each
-     kernel's part, top kernels)
+     graph and brute searches, exact and pq, and one bucket-128 graph flush
+     of the serve path (device busy share, each kernel's part, top kernels)
   5. recsys: the fm model at its full width (F=39 fields, V=1,000,000 rows a
      field, D=10; 1.56 GB of tables and 156 MB of linear weights drawn on
      the card from --seed). fm_interaction at serve_p99 (B=512), serve_bulk
@@ -59,8 +67,8 @@ Phases:
      several batches, then each profiled once; last of all, one more
      Engine.build of phase 4's data under the profiler
   6. a JSON line of every kernel's launches in phases 4 and 5 (the exact,
-     quantized and recsys paths, each counted from 0; a kernel of a path
-     that the path never launched fails the run), error and times
+     serve, quantized and recsys paths, each counted from 0; a kernel of a
+     path that the path never launched fails the run), error and times
 
 At N = 1M this dataset's graph recall is low (the AUTO-built HELP graph
 splits by attribute combination; the reference does the same): it is
@@ -142,6 +150,14 @@ RETRIEVAL_K, CUT_VOCAB, CUT_ITEMS = 100, 1000, 20_000
 RETRIEVAL_RTOL, RETRIEVAL_ATOL = 1e-5, 1e-6
 #: item factors at the scale of a user vector (a sum of 39 rows of N(0, 0.01²))
 ITEM_SCALE = 0.0625
+#: phase 4's serve trace: requests from tenants in turn, Poisson arrivals
+#: at SERVE_RATE a second in all on serve_loop's virtual clock, the window
+#: and bucket ladder of launch/serve.py, every 16th response held to its
+#: solo search; the first 512 requests again through a ThreadedServer fed
+#: by 4 client threads
+SERVE_REQUESTS, SERVE_TENANTS, SERVE_RATE = 1024, 4, 8000.0
+SERVE_WINDOW_MS, SERVE_BUCKETS = 2.0, (1, 8, 32, 128)
+SERVE_SOLO_EVERY, SERVE_THREADED, SERVE_CLIENTS = 16, 512, 4
 
 
 def log(*a):
@@ -363,11 +379,13 @@ def check_kernels(dev, ds, alpha: float, seed: int) -> dict:
         tiles[bt] = {f"{md}_device_ms": device_ms(
             lambda md=md: fused_auto(qv_t, qa_t, db_v, db_a, alpha, md))
             for md in ("l2", "auto")}
+        tiles[bt]["library_ms"] = cuda_ms(lambda: torch.cdist(qv_t, db_v))
         t_bytes = (bt * m + n * m + n * l + bt * l * 2) * 4 + bt * n * 4
         t_ops = 2 * bt * n * m + 2 * (bt + n) * m + 4 * bt * n
         tiles[bt]["bound_ms"] = max(t_bytes / PEAK_BYTES_PER_S, t_ops / PEAK_F32_FLOPS) * 1e3
         log(f"  fused_auto  B={bt} N={n} M={m}: device l2 {tiles[bt]['l2_device_ms']:.4f} ms, "
-            f"auto {tiles[bt]['auto_device_ms']:.4f} ms, bound {tiles[bt]['bound_ms']:.4f} ms")
+            f"auto {tiles[bt]['auto_device_ms']:.4f} ms, torch.cdist "
+            f"{tiles[bt]['library_ms']:.4f} ms, bound {tiles[bt]['bound_ms']:.4f} ms")
     log(f"  fused_auto: max|err| {max_err:.3e} (tol (1e-5·(|q|²+|x|²)+1e-6)·pen² + 1e-6·|ref|), "
         f"batch-invariant bitwise: {invariant}")
     report["fused_auto"] = dict(
@@ -855,6 +873,203 @@ def run_main_path(dev, ds, reps: int = 5):
     return out, eng
 
 
+def serve_queries(ds) -> list:
+    """ds's query vectors, cycled through four predicate kinds: MATCH on
+    every attribute; MATCH on attributes 0 and 1, ANY on the rest; ONE_OF
+    of two labels on attribute 0; BETWEEN(0, 1) on attribute 0 (MATCH on
+    the rest in both)."""
+    from repro_torch.api import ANY, BETWEEN, MATCH, ONE_OF, Query
+
+    labels, out = ds.labels_per_dim, []
+    for i, (v, a) in enumerate(zip(ds.query_features, ds.query_attrs)):
+        a = [int(x) for x in a]
+        rest = [MATCH(x) for x in a[1:]]
+        out.append(Query(v, [
+            [MATCH(x) for x in a],
+            [MATCH(a[0]), MATCH(a[1])] + [ANY] * (len(a) - 2),
+            [ONE_OF(a[0], (a[0] + 1) % labels)] + rest,
+            [BETWEEN(0, 1)] + rest,
+        ][i % 4]))
+    return out
+
+
+def run_serve_path(dev, ds, eng, seed: int):
+    """Phase 4, serving: a multi-tenant request trace through the port's
+    serve_loop on the exact engine, once on each backend; every 16th
+    response against its query searched alone, bit for bit; a
+    ThreadedServer on 4 client threads against serve_loop's answers; one
+    scrape of its metrics endpoint. Returns the results and a bucket-128
+    graph flush of 128 MATCH requests, which the caller profiles last."""
+    import threading
+    import urllib.request
+    from collections import defaultdict
+
+    from repro_torch.api import QueryBatch, SearchParams
+    from repro_torch.core.baselines import recall_at_k
+    from repro_torch.kernels.fused_auto.ops import fused_auto
+    from repro_torch.kernels.gather_auto.ops import gather_auto
+    from repro_torch.serve import (
+        Completed, Microbatcher, Request, ServerStats, TenantPolicy, TenantRegistry,
+        ThreadedServer, serve_loop,
+    )
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    class BucketStats(ServerStats):
+        """ServerStats that also keeps each batch's service ms by bucket."""
+
+        def __init__(self, engine):
+            super().__init__(engine)
+            self.by_bucket = defaultdict(list)
+
+        def record_batch(self, n_real, bucket, service_s):
+            super().record_batch(n_real, bucket, service_s)
+            self.by_bucket[bucket].append(service_s * 1e3)
+
+    tenants = [f"tenant-{t}" for t in range(SERVE_TENANTS)]
+
+    def registry(params):
+        reg = TenantRegistry()
+        for t in tenants:
+            reg.register(t, TenantPolicy(params=params))
+        return reg
+
+    queries = serve_queries(ds)
+    arrivals = np.cumsum(np.random.default_rng(seed).exponential(1.0 / SERVE_RATE, SERVE_REQUESTS))
+    reqs = [Request(tenants[i % SERVE_TENANTS], queries[i % len(queries)], request_id=i)
+            for i in range(SERVE_REQUESTS)]
+    trace = list(zip(arrivals.tolist(), reqs))
+    log(f"  serve trace: {SERVE_REQUESTS} requests, {SERVE_TENANTS} tenants round robin, "
+        f"4 predicate kinds, Poisson arrivals at {SERVE_RATE:.0f}/s over "
+        f"{arrivals[-1] * 1e3:.1f} ms of serve_loop's virtual clock; window {SERVE_WINDOW_MS} ms, "
+        f"buckets {SERVE_BUCKETS}, no rate limit, k=10")
+    out, answers = {}, {}
+    for backend in ("graph", "brute"):
+        params = SearchParams(k=10, backend=backend)
+        stats = BucketStats(eng)
+        g0, f0 = gather_auto.launches, fused_auto.launches
+        t0 = time.perf_counter()
+        resp, _ = serve_loop(eng, trace, registry(params), window_ms=SERVE_WINDOW_MS,
+                             buckets=SERVE_BUCKETS, stats=stats)
+        sync()
+        wall_s = time.perf_counter() - t0
+        snap = stats.snapshot()  # before the solo searches touch the plan cache
+        launches = {"gather_auto": gather_auto.launches - g0,
+                    "fused_auto": fused_auto.launches - f0}
+        kernel = "gather_auto" if backend == "graph" else "fused_auto"
+        if launches[kernel] == 0:
+            raise SystemExit(f"serve {backend}: {kernel} was not launched")
+        if not all(isinstance(r, Completed) for r in resp):
+            raise SystemExit(f"serve {backend}: not every response is Completed: "
+                             f"{sorted({type(r).__name__ for r in resp})}")
+        ids = np.stack([r.ids for r in resp])
+        if ids.shape != (SERVE_REQUESTS, 10) or ((ids < -1) | (ids >= eng.n_items)).any():
+            raise SystemExit(f"serve {backend}: ids of shape {ids.shape} out of range")
+        if not all(np.isfinite(r.dists[r.ids >= 0]).all() for r in resp):
+            raise SystemExit(f"serve {backend}: a valid slot's distance is not finite")
+        for i in range(0, SERVE_REQUESTS, SERVE_SOLO_EVERY):
+            alone = eng.search(QueryBatch.from_queries([reqs[i].query]), params)
+            if not (np.array_equal(alone.ids[0].cpu().numpy(), resp[i].ids)
+                    and np.array_equal(alone.dists[0].cpu().numpy(), resp[i].dists)):
+                raise SystemExit(f"serve {backend}: request {i} (bucket {resp[i].bucket}) differs "
+                                 f"from its query searched alone")
+        lat = snap["latency_ms"]
+        service = {b: dict(batches=len(v), mean_ms=statistics.fmean(v))
+                   for b, v in sorted(stats.by_bucket.items())}
+        out[backend] = row = dict(
+            p50_ms=lat["p50"], p95_ms=lat["p95"], p99_ms=lat["p99"],
+            queue_ms_p99=snap["queue_ms_p99"], service_ms_p99=snap["service_ms_p99"],
+            service_by_bucket=service, batches=snap["batches"],
+            batch_fill_ratio=snap["batch_fill_ratio"],
+            plan_cache_hit_rate=snap["plan_cache"]["hit_rate"],
+            compiled_plans=snap["retraces"], offered_qps_virtual=snap["qps"],
+            wall_s=wall_s, launches=launches,
+        )
+        answers[backend] = resp
+        log(f"  serve {backend}: {snap['completed']}/{snap['submitted']} Completed in "
+            f"{snap['batches']} batches, fill {snap['batch_fill_ratio']:.4f}; end-to-end p50 "
+            f"{lat['p50']:.3f} p95 {lat['p95']:.3f} p99 {lat['p99']:.3f} ms (queue p99 "
+            f"{snap['queue_ms_p99']:.3f}, service p99 {snap['service_ms_p99']:.3f}); plan cache "
+            f"hit rate {row['plan_cache_hit_rate']:.4f} ({row['compiled_plans']} plans compiled); "
+            f"launches {launches}; {wall_s:.2f} s of wall time")
+        log(f"    service ms by bucket: " + ", ".join(
+            f"{b}: {s['mean_ms']:.3f} x{s['batches']}" for b, s in service.items()))
+        log(f"    QPS {snap['qps']:.1f} is the offered rate on serve_loop's virtual clock, "
+            f"not a capacity; every {SERVE_SOLO_EVERY}th response equals its solo search bit "
+            f"for bit")
+    recall = recall_at_k(np.stack([r.ids for r in answers["graph"]]),
+                         np.stack([r.ids for r in answers["brute"]]), 10)
+    out["recall_at_10_graph_vs_brute"] = recall
+    log(f"  serve recall@10 of the graph run against the brute run: {recall:.4f} "
+        f"(printed, not gated: the algorithm's at N = 1M)")
+
+    # a ThreadedServer on the wall clock: 4 client threads submit at once
+    graph = SearchParams(k=10, backend="graph")
+    take = reqs[:SERVE_THREADED]
+    futures = [None] * len(take)
+    with ThreadedServer(eng, registry(graph), window_ms=SERVE_WINDOW_MS, buckets=SERVE_BUCKETS,
+                        metrics_port=0) as srv:
+        def client(c):
+            for i in range(c, len(take), SERVE_CLIENTS):
+                futures[i] = srv.submit(take[i])
+
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in clients):
+            raise SystemExit("serve: a ThreadedServer client did not finish submitting")
+        threaded = [f.result(timeout=600) for f in futures]
+        wall_s = time.perf_counter() - t0
+        url = srv.metrics_server.url
+        text = urllib.request.urlopen(url + "/metrics", timeout=30).read().decode()
+        scraped = json.loads(urllib.request.urlopen(url + "/metrics.json", timeout=30).read())
+    for i, r in enumerate(threaded):
+        want = answers["graph"][i]
+        if not (isinstance(r, Completed) and np.array_equal(r.ids, want.ids)
+                and np.array_equal(r.dists, want.dists)):
+            raise SystemExit(f"serve: ThreadedServer's answer to request {i} differs from "
+                             f"serve_loop's")
+    snap = srv.stats.snapshot()
+    prom = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            prom[name] = float(value)
+    if not (prom.get("serve_completed") == snap["completed"] == len(take)
+            == scraped["providers"]["serve_completed"]):
+        raise SystemExit(f"serve: metrics endpoint counts {prom.get('serve_completed')} / "
+                         f"{scraped['providers'].get('serve_completed')} completed, stats "
+                         f"{snap['completed']}")
+    lat = snap["latency_ms"]
+    out["threaded"] = dict(requests=len(take), clients=SERVE_CLIENTS, wall_s=wall_s,
+                           requests_per_s=len(take) / wall_s, p50_ms=lat["p50"],
+                           p99_ms=lat["p99"], batches=snap["batches"],
+                           batch_fill_ratio=snap["batch_fill_ratio"],
+                           metrics_lines=len(prom))
+    log(f"  serve ThreadedServer (graph, {SERVE_CLIENTS} client threads): {len(take)} requests "
+        f"in {wall_s:.3f} s = {len(take) / wall_s:.1f} requests/s on the wall clock; end-to-end "
+        f"p50 {lat['p50']:.3f} p99 {lat['p99']:.3f} ms; {snap['batches']} batches, fill "
+        f"{snap['batch_fill_ratio']:.4f}; every answer equals serve_loop's bit for bit; "
+        f"/metrics ({len(prom)} samples) and /metrics.json scraped, serve_completed "
+        f"{snap['completed']}")
+
+    # one bucket-128 graph flush under the profiler: 128 MATCH requests
+    match = [r for r in reqs if r.request_id % 4 == 0][:SERVE_BUCKETS[-1]]
+
+    def flush():
+        mb = Microbatcher(eng, ServerStats(eng), window_s=1.0, buckets=SERVE_BUCKETS)
+        done = [c for r in match for c in mb.enqueue(r, graph, 0.0)]
+        if len(done) != len(match) or done[0].bucket != SERVE_BUCKETS[-1]:
+            raise SystemExit("serve: 128 MATCH requests did not flush as one bucket-128 batch")
+
+    return out, flush
+
+
 def run_quant_path(dev, ds, eng, reps: int = 5):
     """Phase 4, quantized: train each codec over the built index's rows and
     attach it to the same graph, then search MATCH and ONE_OF on both
@@ -1257,13 +1472,17 @@ def main(argv=None) -> int:
 
     (main_out, eng), exact_launches = drive(
         run_main_path, ("gather_auto", "fused_auto"), dev, ds)
+    log("[4] serving: serve_loop and ThreadedServer over the exact engine")
+    (serve_out, serve_flush), serve_launches = drive(
+        run_serve_path, ("gather_auto", "fused_auto"), dev, ds, eng, args.seed)
     (quant_out, pq_eng), quant_launches = drive(
         run_quant_path, ("gather_auto", "fused_auto", "adc_scan", "adc_scan4"), dev, ds, eng)
     # last: searches timed after the profiler run slower; not counted
     q = predicate_batches(ds)["MATCH"]
     profiles = {f"{tag}/{b}": profile_search(e, q, SearchParams(k=10, backend=b))
                 for tag, e in (("exact", eng), ("pq", pq_eng)) for b in ("graph", "brute")}
-    del eng, pq_eng
+    profiles["serve/flush_128"] = profile_call("serve bucket-128 graph flush", serve_flush)
+    del eng, pq_eng, serve_flush
     torch.cuda.empty_cache()
 
     # ---- phase 5: the recsys path at the full fm width
@@ -1283,7 +1502,8 @@ def main(argv=None) -> int:
     recsys_small = check_recsys_small(dev, args.seed)
     (recsys_out, calls), recsys_launches = drive(
         run_recsys_path, ("fm_interaction", "fused_auto"), dev, fm_cfg, fm_params, args.seed)
-    launches = {k: exact_launches[k] + quant_launches[k] + recsys_launches[k] for k in wrappers}
+    launches = {k: exact_launches[k] + serve_launches[k] + quant_launches[k] + recsys_launches[k]
+                for k in wrappers}
     profiles.update({f"recsys/{label}": profile_call(label, fn) for label, fn in calls.items()})
     del fm_params, calls
     torch.cuda.empty_cache()
@@ -1326,10 +1546,12 @@ def main(argv=None) -> int:
                 if k in kern[name]}}
         for name, (src, rep) in sources.items()
     ]}
-    log("[6] summary " + json.dumps({"n": args.n, "main_path": main_out, "quantized": quant_out,
+    log("[6] summary " + json.dumps({"n": args.n, "main_path": main_out, "serve": serve_out,
+                                     "quantized": quant_out,
                                      "recsys": recsys_out, "recsys_cut_vocab": recsys_small,
                                      "profiles": profiles, "small_input": small,
                                      "launches": {"exact": exact_launches,
+                                                  "serve": serve_launches,
                                                   "quantized": quant_launches,
                                                   "recsys": recsys_launches},
                                      "gather_descent_block": kern["gather_auto"]["descent_block"],

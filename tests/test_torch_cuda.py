@@ -9,7 +9,9 @@ Each kernel is held against its plain version on the same card tensors
 + 1e-6·|ref|; adc_scan, adc_scan4 and fm_interaction bit for bit), must be
 bitwise batch-invariant, and a search on integer-valued data must equal the
 CPU's plain-version search bit for bit, exact and quantized. The fm serve
-and retrieval steps on the card must agree with the CPU's.
+and retrieval steps on the card must agree with the CPU's. A serve_loop
+trace on the card returns, for every request, what its query returns
+searched alone, bit for bit, on both backends.
 """
 import dataclasses
 
@@ -18,7 +20,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.api import Engine, QueryBatch, SearchParams  # noqa: E402
+from repro_torch.api import (  # noqa: E402
+    ANY, BETWEEN, MATCH, ONE_OF, Engine, Query, QueryBatch, SearchParams,
+)
 from repro_torch.configs import fm  # noqa: E402
 from repro_torch.core.index import index_from_numpy  # noqa: E402
 from repro_torch.data.synthetic import make_hybrid_dataset  # noqa: E402
@@ -33,6 +37,7 @@ from repro_torch.models import recsys  # noqa: E402
 from repro_torch.quant import (  # noqa: E402
     QuantConfig, QuantizedVectors, codec_spec, pack_nibbles, quant_from_numpy, unpack_nibbles,
 )
+from repro_torch.serve import Request, TenantPolicy, TenantRegistry, serve_loop  # noqa: E402
 from repro_torch.train.step import make_recsys_retrieval_step, make_recsys_serve_step  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -403,3 +408,32 @@ def test_fm_serve_and_retrieval_steps_on_card_match_cpu(cuda_dev):
             near[p] = False
             assert bool(near.any())
     assert fused_auto.launches == f0 + 2
+
+
+@pytest.mark.parametrize("backend", ["graph", "brute"])
+def test_serve_loop_on_card_equals_solo_searches(cuda_dev, backend):
+    """256 requests from 4 tenants (MATCH, subset, ONE_OF and BETWEEN in
+    turn, Poisson arrivals at 8,000 a second) through serve_loop at
+    n = 20,000: every response equals its query searched alone, bit for
+    bit (both kernels are batch-invariant on the card)."""
+    ds = make_hybrid_dataset(n=20_000, n_queries=256, profile="sift", seed=0)
+    eng = Engine.build(ds.features, ds.attrs, device=cuda_dev)
+    arrivals = np.cumsum(np.random.default_rng(0).exponential(1 / 8000.0, 256))
+    queries = []
+    for i in range(256):
+        v, a = ds.query_features[i], [int(x) for x in ds.query_attrs[i]]
+        queries.append(Query(v, [
+            [MATCH(x) for x in a],
+            [MATCH(a[0]), MATCH(a[1]), ANY, ANY, ANY],
+            [ONE_OF(a[0], (a[0] + 1) % 3)] + [MATCH(x) for x in a[1:]],
+            [BETWEEN(0, 1)] + [MATCH(x) for x in a[1:]],
+        ][i % 4]))
+    params = SearchParams(k=10, backend=backend)
+    trace = [(float(t), Request(f"t{i % 4}", q)) for i, (t, q) in enumerate(zip(arrivals, queries))]
+    resp, stats = serve_loop(eng, trace, TenantRegistry(default_policy=TenantPolicy(params=params)),
+                             window_ms=2.0, buckets=(1, 8, 32, 128))
+    assert stats.completed == 256 and stats.batches < 256
+    for q, r in zip(queries, resp):
+        alone = eng.search(QueryBatch.from_queries([q]), params)
+        assert np.array_equal(alone.ids[0].cpu().numpy(), r.ids)
+        assert np.array_equal(alone.dists[0].cpu().numpy(), r.dists)
