@@ -48,7 +48,9 @@ Phases:
      through a ThreadedServer fed by 4 client threads, each answer equal to
      serve_loop's, and its metrics endpoint scraped (/metrics and
      /metrics.json); latency percentiles, service ms by bucket, fill,
-     plan-cache hit rate and launches printed. Then the quantized slice on the same graph: each codec (sq8, pq, pq4,
+     plan-cache hit rate and launches printed, and a bucket-128 graph
+     flush of 128 MATCH requests timed on the host clock. Then the
+     quantized slice on the same graph: each codec (sq8, pq, pq4,
      opq-pq, opq-pq4; S=64) trained and attached to the index, MATCH and
      ONE_OF searched on both backends against the exact oracle (brute-ADC
      MATCH recall@10 must reach 0.5 for the PQ family). Last, profiled
@@ -1061,12 +1063,26 @@ def run_serve_path(dev, ds, eng, seed: int):
     # one bucket-128 graph flush under the profiler: 128 MATCH requests
     match = [r for r in reqs if r.request_id % 4 == 0][:SERVE_BUCKETS[-1]]
 
-    def flush():
-        mb = Microbatcher(eng, ServerStats(eng), window_s=1.0, buckets=SERVE_BUCKETS)
+    def flush() -> float:
+        """Enqueue the 128 requests (each planned at B = 1); the last one
+        flushes the bucket. Returns the flush's service ms."""
+        stats = ServerStats(eng)
+        mb = Microbatcher(eng, stats, window_s=1.0, buckets=SERVE_BUCKETS)
         done = [c for r in match for c in mb.enqueue(r, graph, 0.0)]
         if len(done) != len(match) or done[0].bucket != SERVE_BUCKETS[-1]:
             raise SystemExit("serve: 128 MATCH requests did not flush as one bucket-128 batch")
+        return stats.service_wall_s * 1e3
 
+    walls, services = [], []
+    for _ in range(6):  # the first warms up
+        t0 = time.perf_counter()
+        services.append(flush())
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["flush_128"] = dict(wall_ms=statistics.median(walls[1:]),
+                            service_ms=statistics.median(services[1:]))
+    log(f"  serve bucket-128 graph flush of 128 MATCH requests: {out['flush_128']['wall_ms']:.3f} ms "
+        f"from the first enqueue to the last answer, of which the search (service) "
+        f"{out['flush_128']['service_ms']:.3f} ms (medians of 5, host clock)")
     return out, flush
 
 
