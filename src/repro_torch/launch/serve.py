@@ -185,7 +185,7 @@ def main(argv=None) -> None:
     ]
 
     # warmup: compile the executables the stream will replay (deterministic
-    # driver, same buckets/params) so the timed run measures serving, not
+    # loop, same buckets/params) so the timed run measures serving, not
     # planning and compiling
     warm = min(len(reqs), max(buckets))
     serve_loop(eng, [(0.0, r) for r in reqs[:warm]],

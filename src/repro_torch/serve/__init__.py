@@ -25,7 +25,7 @@ built for:
 * ``ServerStats`` — live metrics sampled without device round-trips
   (end-to-end latency percentiles, queue depth, batch-fill ratio, plan-
   cache hit rate and compiled plans, per-tenant QPS, shed counts).
-* ``serve_loop`` — deterministic synchronous driver over a scripted
+* ``serve_loop`` — deterministic synchronous loop over a scripted
   ``(arrival_time, Request)`` trace (unit-testable without threads);
   ``ThreadedServer`` — thin wall-clock front-end for live serving
   (``launch/serve.py``).

@@ -24,8 +24,8 @@ one at a time. The ``Microbatcher`` closes that gap:
 Padding is *provably* inert: all traversal state is per-row and the entry
 pool is row-invariant (``routing.make_entry_ids``), so a real row's top-k
 (ids and distances) is bit-identical to the same query served alone. Pad
-rows are ANY-queries (mask = 0 — pure-ANN rows, the ISSUE's "inert"
-wildcard form) whenever the group already carries a mask; mask-free groups
+rows are ANY-queries (mask = 0 — pure-ANN rows, the inert wildcard
+form) whenever the group already carries a mask; mask-free groups
 (all-MATCH) are padded by cloning the first real row instead, because an
 ANY row cannot be expressed without introducing a mask — which would change
 the plan signature and the scorer path the real rows compiled against.
@@ -65,7 +65,7 @@ class _Pending:
     qb: QueryBatch  # compiled single-row batch
     params: SearchParams  # resolved (tenant default or override)
     backend: str  # B=1 planner decision, pinned at flush
-    arrival: float  # driver-clock enqueue time
+    arrival: float  # loop-clock enqueue time
     sampled: bool = False  # tracer's per-request sampling decision
 
 
@@ -231,7 +231,7 @@ class Microbatcher:
                 batch_fill=fill,
             ))
         if trace is not None:
-            # the queue wait ran on the driver clock (virtual in serve_loop,
+            # the queue wait ran on the loop's clock (virtual in serve_loop,
             # wall in ThreadedServer) — attach it as a synthetic span ending
             # where the batch began, and pin the root to queue + batch so
             # the trace decomposes the end-to-end latency exactly

@@ -1,4 +1,4 @@
-"""Serving drivers: a deterministic synchronous loop and a threaded server.
+"""Serving loops: a deterministic synchronous loop and a threaded server.
 
 ``serve_loop`` is the unit-testable core: it replays a *scripted trace* of
 ``(arrival_time, Request)`` pairs against a virtual clock — admission,
@@ -146,7 +146,7 @@ def serve_loop(
         if isinstance(req, (Upsert, Delete)):
             # write path: admit → apply inline (read-your-writes: every
             # later trace item queries the post-write state) → merge when
-            # the compaction policy fires. The synchronous driver merges
+            # the compaction policy fires. The synchronous loop merges
             # in-line.
             if not hasattr(engine, "upsert"):
                 reason = request_mod.REJECT_IMMUTABLE

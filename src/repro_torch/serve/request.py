@@ -52,7 +52,7 @@ class Request:
 
     ``params`` optionally overrides the tenant's default ``SearchParams``
     for this request only; the override must respect the tenant's k/pool
-    caps or admission rejects it. ``request_id`` is assigned by the driver
+    caps or admission rejects it. ``request_id`` is assigned by the loop
     (submission order) when left at None.
     """
 
@@ -67,7 +67,7 @@ class Completed:
     """Successful response — per-query slices of the coalesced batch result.
 
     ``queue_ms`` is time spent waiting for the micro-batch window (the
-    driver's clock domain: virtual under ``serve_loop``, wall under the
+    serving loop's clock domain: virtual under ``serve_loop``, wall under the
     threaded front-end); ``service_ms`` is the measured wall time of the
     batch execution this request rode in; ``bucket``/``batch_fill`` say how
     that batch was shaped (ladder size and real-row fraction).

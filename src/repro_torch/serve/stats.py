@@ -17,7 +17,7 @@ attach when an engine exposes them, as in the reference; no engine of this
 package does yet (ROADMAP queue 1, items 7–9).
 
 Latency is decomposed per request into ``queue`` (waiting for the
-micro-batch window — the driver's clock domain) and ``service`` (measured
+micro-batch window — the serving loop's clock domain) and ``service`` (measured
 wall time of the coalesced batch execution the request rode in, up to a
 sync on the engine's device); the percentiles reported are end-to-end
 (queue + service).
@@ -46,7 +46,7 @@ __all__ = ["ServerStats"]
 
 
 class ServerStats:
-    """Serving-loop metrics accumulator (one per driver run or server)."""
+    """Serving-loop metrics accumulator (one per serve_loop run or server)."""
 
     def __init__(
         self,
@@ -94,7 +94,7 @@ class ServerStats:
         self.service_wall_s = 0.0
         self.queue_depth = 0
         self.max_queue_depth = 0
-        self.span_s = 0.0  # driver-clock span of the run (for QPS)
+        self.span_s = 0.0  # loop-clock span of the run (for QPS)
         #: completions served straight from the result cache (no device work)
         self.cache_served = 0
         self._result_cache: Optional["ResultCache"] = None
@@ -143,8 +143,8 @@ class ServerStats:
 
     @property
     def result_cache(self) -> Optional["ResultCache"]:
-        """The attached ``repro_torch.cache.ResultCache`` (set by the driver
-        when one is in play) — ``snapshot`` folds its counters in and the
+        """The attached ``repro_torch.cache.ResultCache`` (set by the serving
+        loop when one is in play) — ``snapshot`` folds its counters in and the
         assignment registers it as a registry provider."""
         return self._result_cache
 

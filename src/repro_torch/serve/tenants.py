@@ -9,7 +9,7 @@ rate while the shed fraction is observable per tenant in ``ServerStats``.
 
 Token buckets are deterministic given an explicit clock: ``admit(tenant,
 now)`` refills from the elapsed time since the previous call, so the
-synchronous driver (``serve_loop`` with a scripted trace) reproduces
+synchronous loop (``serve_loop`` with a scripted trace) reproduces
 admission decisions exactly, and the threaded front-end passes wall time.
 """
 from __future__ import annotations
