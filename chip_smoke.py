@@ -384,10 +384,11 @@ def check_kernels(dev, ds, alpha: float, seed: int) -> dict:
         tiles[bt]["library_ms"] = cuda_ms(lambda: torch.cdist(qv_t, db_v))
         t_bytes = (bt * m + n * m + n * l + bt * l * 2) * 4 + bt * n * 4
         t_ops = 2 * bt * n * m + 2 * (bt + n) * m + 4 * bt * n
-        tiles[bt]["bound_ms"] = max(t_bytes / PEAK_BYTES_PER_S, t_ops / PEAK_F32_FLOPS) * 1e3
+        tiles[bt]["bound_ms"], tiles[bt]["bound_by"] = bound(t_bytes, t_ops)
         log(f"  fused_auto  B={bt} N={n} M={m}: device l2 {tiles[bt]['l2_device_ms']:.4f} ms, "
             f"auto {tiles[bt]['auto_device_ms']:.4f} ms, torch.cdist "
-            f"{tiles[bt]['library_ms']:.4f} ms, bound {tiles[bt]['bound_ms']:.4f} ms")
+            f"{tiles[bt]['library_ms']:.4f} ms, bound {tiles[bt]['bound_ms']:.4f} ms "
+            f"({tiles[bt]['bound_by']})")
     log(f"  fused_auto: max|err| {max_err:.3e} (tol (1e-5·(|q|²+|x|²)+1e-6)·pen² + 1e-6·|ref|), "
         f"batch-invariant bitwise: {invariant}")
     report["fused_auto"] = dict(

@@ -14,10 +14,12 @@ QPS), not ad-hoc stopwatches.
 The engine runs on the CUDA card unless ``--device cpu`` asks for the
 kernels' plain PyTorch versions; without a card the default raises.
 
-Three of the reference's options need modules that are not ported yet and
-exit with an error before anything is built: ``--writes`` (the mutable
-engine, ROADMAP queue 1 item 8), ``--hot-rows`` (hot/cold tiering, item 9)
-and ``--residency-rows`` (the partitioned store, item 7).
+Five of the reference's options need modules that are not ported yet: set
+to anything but their default, each exits with an error before anything is
+built. ``--writes``, ``--write-rate`` and ``--max-delta-rows`` wait for the
+mutable engine (ROADMAP queue 1, item 8), ``--hot-rows`` for hot/cold
+tiering (item 9) and ``--residency-rows`` for the partitioned store
+(item 7).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --n 4000 --requests 128
@@ -40,6 +42,8 @@ import torch
 #: reference options whose modules are not ported yet: flag → ROADMAP item
 UNPORTED = {
     "writes": "the mutable engine (ROADMAP queue 1, item 8)",
+    "write_rate": "the mutable engine (ROADMAP queue 1, item 8)",
+    "max_delta_rows": "the mutable engine (ROADMAP queue 1, item 8)",
     "hot_rows": "hot/cold tiering (ROADMAP queue 1, item 9)",
     "residency_rows": "the partitioned segment store (ROADMAP queue 1, item 7)",
 }
@@ -91,13 +95,17 @@ def main(argv=None) -> None:
                     help="stream W held-out rows back as Upserts; not "
                          "ported yet (ROADMAP item 8): > 0 exits with an error")
     ap.add_argument("--write-rate", type=float, default=0.0,
-                    help="per-tenant admitted writes/second; 0 = unlimited")
+                    help="per-tenant admitted writes/second; not ported "
+                         "yet (ROADMAP item 8): any value but 0 exits with "
+                         "an error")
     ap.add_argument("--residency-rows", type=int, default=0,
                     help="partitioned --index-dir only: cap of device-"
                          "resident rows; not ported yet (ROADMAP item 7): "
                          "> 0 exits with an error")
     ap.add_argument("--max-delta-rows", type=int, default=1024,
-                    help="compaction trigger of the write path (--writes)")
+                    help="compaction trigger of the write path; not ported "
+                         "yet (ROADMAP item 8): any value but 1024 exits "
+                         "with an error")
     ap.add_argument("--hot-rows", type=int, default=0,
                     help="hot/cold tiering budget; not ported yet (ROADMAP "
                          "item 9): > 0 exits with an error")
@@ -121,7 +129,7 @@ def main(argv=None) -> None:
                          "--trace-sample 1 unless set explicitly")
     args = ap.parse_args(argv)
     for flag, what in UNPORTED.items():
-        if getattr(args, flag) > 0:
+        if getattr(args, flag) != ap.get_default(flag):
             ap.error(f"--{flag.replace('_', '-')} needs {what}, "
                      "which is not ported yet")
     dev = resolve_device(args.device)
@@ -167,15 +175,11 @@ def main(argv=None) -> None:
         pioneer_size=max(4, args.pool // 8), rerank_size=args.rerank,
     )
     rate = args.rate if args.rate > 0 else math.inf
-    write_rate = args.write_rate if args.write_rate > 0 else math.inf
     reg = TenantRegistry()
     tenants = [f"tenant-{t}" for t in range(max(args.tenants, 1))]
     for t in tenants:
-        reg.register(t, TenantPolicy(
-            params=params, rate=rate, burst=args.burst,
-            write_rate=write_rate,
-            write_burst=max(args.burst, 1.0),
-        ))
+        reg.register(t, TenantPolicy(params=params, rate=rate,
+                                     burst=args.burst))
     reqs = [
         Request(tenants[i % len(tenants)],
                 Query(ds.query_features[i],

@@ -12,11 +12,11 @@ Every submitted request receives exactly one typed response (``Completed``
 or ``Rejected``), returned in submission order by ``serve_loop`` and as a
 ``Future`` by ``ThreadedServer.submit``.
 
-Writes (``Upsert`` / ``Delete``) take the reference's path: an engine
-without ``upsert`` answers each with ``Rejected(reason=immutable_engine)``,
-which every engine of this package does until the mutable engine is ported
-(ROADMAP queue 1, item 8). The reference's background merge worker waits
-for that item too.
+Writes (``Upsert`` / ``Delete``) are answered
+``Rejected(reason=immutable_engine)``, as the reference answers them for an
+engine without ``upsert``: every engine of this package is immutable. The
+reference's write apply, inline merge and background merge worker come with
+the mutable engine (ROADMAP queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ from repro_torch.obs.trace import Tracer
 from repro_torch.serve import request as request_mod
 from repro_torch.serve.batcher import DEFAULT_BUCKETS, Microbatcher
 from repro_torch.serve.request import (
-    Completed, Delete, Rejected, Request, Response, Upsert, WriteAck,
+    Completed, Delete, Rejected, Request, Response, Upsert,
 )
 from repro_torch.serve.stats import ServerStats
 from repro_torch.serve.tenants import TenantPolicy, TenantRegistry
@@ -43,23 +43,6 @@ __all__ = ["ThreadedServer", "serve_loop"]
 
 Submittable = Union[Request, Upsert, Delete]
 TraceItem = Union[Submittable, Tuple[float, Submittable]]
-
-
-def _apply_write(engine, write) -> WriteAck:
-    """Apply one admitted write to a mutable engine and build its ack.
-    The caller has already verified the engine is write-capable."""
-    if isinstance(write, Upsert):
-        wid = engine.upsert(write.vector, write.attrs, id=write.id)
-        applied = True
-        op = "upsert"
-    else:
-        wid = int(write.id)
-        applied = engine.delete(wid)
-        op = "delete"
-    return WriteAck(
-        request_id=write.request_id, tenant=write.tenant, id=int(wid),
-        op=op, applied=applied, delta_rows=engine.delta.n_rows,
-    )
 
 
 def serve_loop(
@@ -85,13 +68,11 @@ def serve_loop(
     *service* time is still measured wall time (it feeds latency stats, not
     decisions).
 
-    Trace items may also be ``Upsert``/``Delete`` writes. An engine without
-    ``upsert`` (every engine of this package, until ROADMAP item 8) rejects
-    each as ``immutable_engine``; a mutable one admits each against the
-    tenant's write bucket, applies it *inline* at its arrival time — so
-    every later query in the trace reads the post-write state — and acks it
-    with a ``WriteAck``. When the engine's compaction policy fires, the
-    merge runs synchronously at that trace position (deterministic).
+    Trace items may also be ``Upsert``/``Delete`` writes. Every engine of
+    this package is immutable, so each is answered
+    ``Rejected(immutable_engine)``, as the reference answers writes to its
+    immutable ``Engine``; admitting, applying and merging writes come with
+    the mutable engine (ROADMAP queue 1, item 8).
 
     ``result_cache`` attaches a serve-layer ``repro_torch.cache.ResultCache``:
     after admission, a request whose (tenant, query, params) signature hits
@@ -144,28 +125,12 @@ def serve_loop(
         idx = len(out)
         out.append(None)
         if isinstance(req, (Upsert, Delete)):
-            # write path: admit → apply inline (read-your-writes: every
-            # later trace item queries the post-write state) → merge when
-            # the compaction policy fires. The synchronous loop merges
-            # in-line.
-            if not hasattr(engine, "upsert"):
-                reason = request_mod.REJECT_IMMUTABLE
-            else:
-                reason = registry.admit_write(req, now)
-            if reason is not None:
-                stats.record_write_reject(req.tenant, reason)
-                out[idx] = Rejected(
-                    request_id=req.request_id, tenant=req.tenant,
-                    reason=reason,
-                )
-                continue
-            ack = _apply_write(engine, req)
-            stats.record_write(req.tenant, ack.op)
-            out[idx] = ack
-            if engine.should_merge():
-                merged = engine.merge()
-                if merged is not None:
-                    stats.record_merge(merged["wall_ms"])
+            # no engine of this package takes writes (ROADMAP item 8)
+            reason = request_mod.REJECT_IMMUTABLE
+            stats.record_write_reject(req.tenant, reason)
+            out[idx] = Rejected(
+                request_id=req.request_id, tenant=req.tenant, reason=reason,
+            )
             continue
         stats.record_submit(req.tenant)
         if req.request_id in slot:  # collides with an in-flight request
@@ -215,13 +180,11 @@ class ThreadedServer:
     owns the ``Microbatcher`` and flushes groups on window expiry or full
     buckets.
 
-    Writes (``Upsert``/``Delete``) are admitted against the tenant's write
-    bucket and *applied synchronously* on the caller's thread — the
-    returned Future is already resolved, so read-your-writes holds for any
-    request submitted afterwards. The reference's background merge (a
-    thread that prepares a delta→main merge off-lock, applied by the worker
-    between batches) is left out until the mutable engine is ported
-    (ROADMAP queue 1, item 8). Use as a context manager::
+    Writes (``Upsert``/``Delete``) resolve on the caller's thread as
+    ``Rejected(immutable_engine)`` (``server_stopped`` after ``stop()``).
+    The reference's write admission, inline apply and background merge come
+    with the mutable engine (ROADMAP queue 1, item 8). Use as a context
+    manager::
 
         with ThreadedServer(engine, registry, window_ms=2.0) as srv:
             futs = [srv.submit(r) for r in reqs]
@@ -323,7 +286,7 @@ class ThreadedServer:
     def submit(self, req: Submittable) -> "Future[Response]":
         """Admit (or shed) on the caller's thread; returns a Future that
         resolves to this request's typed response. Writes resolve before
-        returning (they are applied synchronously)."""
+        returning."""
         if isinstance(req, (Upsert, Delete)):
             return self._submit_write(req)
         fut: "Future[Response]" = Future()
@@ -375,32 +338,20 @@ class ThreadedServer:
         return fut
 
     def _submit_write(self, write: Union[Upsert, Delete]) -> "Future[Response]":
-        """Admit + apply one write on the caller's thread. By the time the
-        (already-resolved) Future returns, the write is visible to every
-        subsequently submitted query — read-your-writes."""
+        """Answer one write on the caller's thread: no engine of this
+        package takes writes until ROADMAP item 8."""
         fut: "Future[Response]" = Future()
         with self._lock:
             if write.request_id is None:
                 write = dataclasses.replace(write, request_id=self._next_id)
             self._next_id = max(self._next_id, write.request_id) + 1
-            if self._stop.is_set():
-                reason: Optional[str] = request_mod.REJECT_STOPPED
-            elif not hasattr(self._engine, "upsert"):
-                reason = request_mod.REJECT_IMMUTABLE
-            else:
-                reason = self.registry.admit_write(write, self._now())
-            if reason is not None:
-                self.stats.record_write_reject(write.tenant, reason)
-                fut.set_result(Rejected(
-                    request_id=write.request_id, tenant=write.tenant,
-                    reason=reason,
-                ))
-                return fut
-            ack = _apply_write(self._engine, write)
-            self.stats.record_write(write.tenant, ack.op)
-            fut.set_result(ack)
-        # the reference schedules a background merge here; it comes with
-        # the mutable engine (ROADMAP queue 1, item 8)
+            reason = (request_mod.REJECT_STOPPED if self._stop.is_set()
+                      else request_mod.REJECT_IMMUTABLE)
+            self.stats.record_write_reject(write.tenant, reason)
+            fut.set_result(Rejected(
+                request_id=write.request_id, tenant=write.tenant,
+                reason=reason,
+            ))
         return fut
 
     # -- worker ---------------------------------------------------------------

@@ -3,7 +3,7 @@
 ``ServerStats`` is a thin view over a ``repro_torch.obs.MetricsRegistry`` plus
 the per-tenant breakdown: request latencies land in the registry's bounded
 streaming histograms (``serve_queue_ms`` / ``serve_service_ms`` /
-``serve_total_ms`` / ``serve_merge_ms`` — fixed log-spaced buckets, so a
+``serve_total_ms`` — fixed log-spaced buckets, so a
 long-running server's memory does not grow with every completion), and
 every other counter owner in the stack — the executor's plan cache, the
 compiled-plan counter and the serve-layer ``ResultCache`` — is registered
@@ -12,9 +12,11 @@ as a pull-based *provider* on the same registry, so one scrape surface
 sees them all with zero new work on any hot path. The port has no jit:
 ``core.routing.trace_count`` counts compiled search plans, and the
 ``retraces`` / ``jit_hit_rate`` keys read it where the reference reads its
-jit trace count. The delta/WAL/merge, tier and ``SegmentStore`` providers
-attach when an engine exposes them, as in the reference; no engine of this
-package does yet (ROADMAP queue 1, items 7–9).
+jit trace count. The reference's delta/WAL/merge, tier and
+``SegmentStore`` providers come with the engines that own them (ROADMAP
+queue 1, items 8, 9 and 7); every engine of this package is immutable, so
+the write counters here count shed writes only, and the applied-write and
+merge keys of ``snapshot()`` stay 0 beside the reference's.
 
 Latency is decomposed per request into ``queue`` (waiting for the
 micro-batch window — the serving loop's clock domain) and ``service`` (measured
@@ -24,7 +26,7 @@ sync on the engine's device); the percentiles reported are end-to-end
 
 All recording paths hold one re-entrant lock: under ``ThreadedServer`` the
 submit path runs on caller threads while completions/batches come from the
-worker and merges from the merge thread. ``snapshot()`` takes the same
+worker. ``snapshot()`` takes the same
 lock for the counter block, so a mid-stream scrape sees a consistent
 sample. ``snapshot()`` keys are backward-compatible with the pre-registry
 implementation.
@@ -72,8 +74,6 @@ class ServerStats:
                 "upserts": 0, "deletes": 0, "writes_shed": 0,
             }
         )
-        self.upserts = 0
-        self.deletes = 0
         self.writes_rejected = 0
         # bounded streaming latency state (the old unbounded lists)
         self._h_queue = self.registry.histogram(
@@ -84,9 +84,6 @@ class ServerStats:
         )
         self._h_total = self.registry.histogram(
             "serve_total_ms", help="end-to-end request latency"
-        )
-        self._h_merge = self.registry.histogram(
-            "serve_merge_ms", help="delta merge wall time (prepare + apply)"
         )
         self.batches = 0
         self.real_rows = 0
@@ -113,15 +110,6 @@ class ServerStats:
         if eng is None:
             return
         reg.register_provider("executor", lambda: eng.executor.stats())
-        write_stats = getattr(eng, "write_stats", None)
-        if write_stats is not None:  # MutableEngine: delta/WAL/merge gauges
-            reg.register_provider("delta", write_stats)
-        tier_stats = getattr(eng, "tier_stats", None)
-        if tier_stats is not None:  # TieredEngine: hot/cold + tracker
-            reg.register_provider("tier", tier_stats)
-        store = getattr(getattr(eng, "index", None), "store", None)
-        if store is not None:  # partitioned: shard residency LRU
-            reg.register_provider("segment_store", store.stats)
 
     def _serve_counters(self) -> dict:
         with self._lock:
@@ -129,10 +117,10 @@ class ServerStats:
                 "submitted": self.submitted,
                 "completed": self.completed,
                 "rejected": self.rejected,
-                "upserts": self.upserts,
-                "deletes": self.deletes,
+                "upserts": 0,
+                "deletes": 0,
                 "writes_shed": self.writes_rejected,
-                "merges": self._h_merge.count,
+                "merges": 0,
                 "batches": self.batches,
                 "real_rows": self.real_rows,
                 "bucket_rows": self.bucket_rows,
@@ -169,16 +157,6 @@ class ServerStats:
             self.rejected_by_reason[reason] += 1
             self.per_tenant[tenant]["rejected"] += 1
 
-    def record_write(self, tenant: str, op: str) -> None:
-        """One accepted (applied) write. ``op`` is "upsert" or "delete"."""
-        with self._lock:
-            if op == "upsert":
-                self.upserts += 1
-                self.per_tenant[tenant]["upserts"] += 1
-            else:
-                self.deletes += 1
-                self.per_tenant[tenant]["deletes"] += 1
-
     def record_write_reject(self, tenant: str, reason: str) -> None:
         """One shed write (kept separate from read rejections: ``rejected``
         counts queries only, so read SLO math is unpolluted)."""
@@ -186,10 +164,6 @@ class ServerStats:
             self.writes_rejected += 1
             self.rejected_by_reason[reason] += 1
             self.per_tenant[tenant]["writes_shed"] += 1
-
-    def record_merge(self, wall_ms: float) -> None:
-        """One completed delta→main merge (prepare + apply wall time)."""
-        self._h_merge.observe(float(wall_ms))
 
     def record_queue_depth(self, depth: int) -> None:
         with self._lock:
@@ -265,20 +239,12 @@ class ServerStats:
                     for t, c in sorted(self.per_tenant.items())
                 },
             }
-            if self.upserts or self.deletes or self.writes_rejected:
+            if self.writes_rejected:
                 out["writes"] = {
-                    "upserts": self.upserts,
-                    "deletes": self.deletes,
-                    "shed": self.writes_rejected,
-                    "merges": self._h_merge.count,
-                    "merge_ms_p50": round(self._h_merge.percentile(50), 3),
-                    "merge_ms_p95": round(self._h_merge.percentile(95), 3),
+                    "upserts": 0, "deletes": 0, "shed": self.writes_rejected,
+                    "merges": 0, "merge_ms_p50": 0.0, "merge_ms_p95": 0.0,
                 }
             cache_served = self.cache_served
-        # delta/tombstone occupancy gauges from a write-capable engine
-        write_stats = getattr(self._engine, "write_stats", None)
-        if write_stats is not None:
-            out["delta"] = write_stats()
         # serve-layer result cache: hit/invalidation counters plus how many
         # completions this run served without touching the device
         if self._result_cache is not None:
@@ -286,10 +252,6 @@ class ServerStats:
                 **self._result_cache.stats(),
                 "served": cache_served,
             }
-        # hot/cold tier counters from a tiered engine
-        tier_stats = getattr(self._engine, "tier_stats", None)
-        if tier_stats is not None:
-            out["tier"] = tier_stats()
         # cache/trace rates from host counters (deltas vs construction time)
         retraces = routing_mod.trace_count() - self._traces0
         out["retraces"] = retraces
