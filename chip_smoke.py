@@ -55,7 +55,19 @@ Phases:
      ONE_OF searched on both backends against the exact oracle (brute-ADC
      MATCH recall@10 must reach 0.5 for the PQ family). Last, profiled
      graph and brute searches, exact and pq, and one bucket-128 graph flush
-     of the serve path (device busy share, each kernel's part, top kernels)
+     of the serve path (device busy share, each kernel's part, top kernels).
+     Then the partitioned backend at the reference's scale_sweep
+     configuration (P = 128 at N = 1M, HelpConfig(12, 4, 4), the pq codec
+     at S=64): Engine.build_partitioned, saved and loaded back with a cap
+     of max bucket x max(4, √P) rows; 128 queries with MATCH on attribute
+     0 at nprobe 1, √P/2, √P and 2√P on the brute sub-backend (recall@10
+     against the flat brute oracle, ≥ 0.9 at √P; the store's peak under
+     the cap, evictions), pq brute and graph at √P; the full probe bit for
+     bit against the flat brute engine (exact, and pq over the same codes)
+     on the four predicate kinds; device memory back after evict_all; 256
+     requests of the serve trace on the partitioned engine, every 16th
+     equal to its solo search; fused_auto and adc_scan at the probe shape
+     it runs most, timed beside their bounds; one profiled search
   5. recsys: the fm model at its full width (F=39 fields, V=1,000,000 rows a
      field, D=10; 1.56 GB of tables and 156 MB of linear weights drawn on
      the card from --seed). fm_interaction at serve_p99 (B=512), serve_bulk
@@ -69,8 +81,9 @@ Phases:
      several batches, then each profiled once; last of all, one more
      Engine.build of phase 4's data under the profiler
   6. a JSON line of every kernel's launches in phases 4 and 5 (the exact,
-     serve, quantized and recsys paths, each counted from 0; a kernel of a
-     path that the path never launched fails the run), error and times
+     serve, quantized, partitioned and recsys paths, each counted from 0; a
+     kernel of a path that the path never launched fails the run), error
+     and times
 
 At N = 1M this dataset's graph recall is low (the AUTO-built HELP graph
 splits by attribute combination; the reference does the same): it is
@@ -83,12 +96,17 @@ Any failure exits non-zero before the last line, which is exactly
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
+import gc
 import json
+import math
 import os
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -160,6 +178,15 @@ ITEM_SCALE = 0.0625
 SERVE_REQUESTS, SERVE_TENANTS, SERVE_RATE = 1024, 4, 8000.0
 SERVE_WINDOW_MS, SERVE_BUCKETS = 2.0, (1, 8, 32, 128)
 SERVE_SOLO_EVERY, SERVE_THREADED, SERVE_CLIENTS = 16, 512, 4
+#: phase 4's partitioned step: the reference's scale_sweep configuration
+#: (benchmarks/paper_benchmarks.py:1141-1167: P from N, HelpConfig(12, 4,
+#: 4), 128 queries with MATCH on attribute 0, the nprobe sweep
+#: {1, √P/2, √P, 2√P}, the cap of max bucket x max(4, √P) rows) with the
+#: quant sweep's pq codec; its recall target at √P
+#: (artifacts/bench/BENCH_scale.json); the first 256 requests of the serve
+#: trace
+PART_QUERIES, PART_RECALL_FLOOR, PART_SERVE_REQUESTS = 128, 0.9, 256
+PART_HELP_KW = dict(gamma=12, gamma_new=4, max_rounds=4)
 
 
 def log(*a):
@@ -896,6 +923,30 @@ def serve_queries(ds) -> list:
     return out
 
 
+def serve_trace(ds, seed: int):
+    """(tenants, trace) of phase 4: SERVE_REQUESTS requests from
+    SERVE_TENANTS tenants in turn (``serve_queries``), Poisson arrivals at
+    SERVE_RATE a second drawn from ``seed``, as (arrival s, Request)."""
+    from repro_torch.serve import Request
+
+    tenants = [f"tenant-{t}" for t in range(SERVE_TENANTS)]
+    queries = serve_queries(ds)
+    arrivals = np.cumsum(np.random.default_rng(seed).exponential(1.0 / SERVE_RATE, SERVE_REQUESTS))
+    reqs = [Request(tenants[i % SERVE_TENANTS], queries[i % len(queries)], request_id=i)
+            for i in range(SERVE_REQUESTS)]
+    return tenants, list(zip(arrivals.tolist(), reqs))
+
+
+def serve_registry(tenants, params):
+    """A TenantRegistry giving every tenant ``params`` and no rate limit."""
+    from repro_torch.serve import TenantPolicy, TenantRegistry
+
+    reg = TenantRegistry()
+    for t in tenants:
+        reg.register(t, TenantPolicy(params=params))
+    return reg
+
+
 def run_serve_path(dev, ds, eng, seed: int):
     """Phase 4, serving: a multi-tenant request trace through the port's
     serve_loop on the exact engine, once on each backend; every 16th
@@ -912,8 +963,7 @@ def run_serve_path(dev, ds, eng, seed: int):
     from repro_torch.kernels.fused_auto.ops import fused_auto
     from repro_torch.kernels.gather_auto.ops import gather_auto
     from repro_torch.serve import (
-        Completed, Microbatcher, Request, ServerStats, TenantPolicy, TenantRegistry,
-        ThreadedServer, serve_loop,
+        Completed, Microbatcher, ServerStats, ThreadedServer, serve_loop,
     )
 
     def sync():
@@ -931,22 +981,15 @@ def run_serve_path(dev, ds, eng, seed: int):
             super().record_batch(n_real, bucket, service_s)
             self.by_bucket[bucket].append(service_s * 1e3)
 
-    tenants = [f"tenant-{t}" for t in range(SERVE_TENANTS)]
+    tenants, trace = serve_trace(ds, seed)
+    reqs = [r for _, r in trace]
 
     def registry(params):
-        reg = TenantRegistry()
-        for t in tenants:
-            reg.register(t, TenantPolicy(params=params))
-        return reg
+        return serve_registry(tenants, params)
 
-    queries = serve_queries(ds)
-    arrivals = np.cumsum(np.random.default_rng(seed).exponential(1.0 / SERVE_RATE, SERVE_REQUESTS))
-    reqs = [Request(tenants[i % SERVE_TENANTS], queries[i % len(queries)], request_id=i)
-            for i in range(SERVE_REQUESTS)]
-    trace = list(zip(arrivals.tolist(), reqs))
     log(f"  serve trace: {SERVE_REQUESTS} requests, {SERVE_TENANTS} tenants round robin, "
         f"4 predicate kinds, Poisson arrivals at {SERVE_RATE:.0f}/s over "
-        f"{arrivals[-1] * 1e3:.1f} ms of serve_loop's virtual clock; window {SERVE_WINDOW_MS} ms, "
+        f"{trace[-1][0] * 1e3:.1f} ms of serve_loop's virtual clock; window {SERVE_WINDOW_MS} ms, "
         f"buckets {SERVE_BUCKETS}, no rate limit, k=10")
     out, answers = {}, {}
     for backend in ("graph", "brute"):
@@ -1153,6 +1196,311 @@ def run_quant_path(dev, ds, eng, reps: int = 5):
             keep = qeng
         del store, qeng
     return out, keep
+
+
+def part_config(n: int) -> tuple[int, int]:
+    """(P, √P) of the reference's scale_sweep: P = 2^round(log2(N/8000)),
+    at least 8; the probe default round(√P)."""
+    p = max(8, 2 ** int(round(math.log2(max(n // 8000, 8)))))
+    return p, max(1, int(round(math.sqrt(p))))
+
+
+def part_nprobes(p: int, sp: int) -> list:
+    """scale_sweep's nprobe points: 1, √P/2, √P and 2√P (at most P)."""
+    return sorted({1, max(1, sp // 2), sp, min(2 * sp, p)})
+
+
+def run_partitioned_path(dev, ds, eng, seed: int, workdir: str):
+    """Phase 4, partitioned: Engine.build_partitioned at scale_sweep's
+    configuration with the pq codec, saved and loaded back under a cap on
+    resident rows; an nprobe sweep on the brute sub-backend (exact), the
+    pq brute and the graph sub-backends at √P, the full probe held to the
+    flat exact engine ``eng`` and to a flat pq engine over the same codes
+    bit for bit, device memory after evict_all, and 256 requests of
+    phase 4's trace served on the partitioned engine. Returns the results
+    and what ``check_partition_probe`` and the profile need."""
+    from repro_torch.api import Engine, QueryBatch, SearchParams
+    from repro_torch.core.baselines import recall_at_k
+    from repro_torch.core.help_graph import HelpConfig
+    from repro_torch.kernels.adc_scan.ops import adc_scan_scores
+    from repro_torch.kernels.fused_auto.ops import fused_auto
+    from repro_torch.kernels.gather_auto.ops import gather_auto
+    from repro_torch.partition import row_bucket
+    from repro_torch.quant import QuantConfig, QuantizedVectors
+    from repro_torch.serve import Completed, ServerStats, serve_loop
+
+    n, l = ds.attrs.shape
+    p, sp = part_config(n)
+    nprobes = part_nprobes(p, sp)
+    help_cfg = HelpConfig(**PART_HELP_KW)
+    t0 = time.perf_counter()
+    built = Engine.build_partitioned(
+        ds.features, ds.attrs, n_partitions=p, help_cfg=help_cfg, device=dev,
+        quant_cfg=QuantConfig(mode="pq", pq_subspaces=ADC_S),
+    )
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    secs = built.index.build_seconds
+    sizes = built.index.summaries.n_rows
+    cap = max(row_bucket(int(r)) for r in sizes) * max(4, sp)
+    row_bytes = ds.features.shape[1] * 4 + l * 4 + help_cfg.gamma * 4 + ADC_S + 4
+    out = dict(n_partitions=p, sqrt_p=sp, build_s=build_s, build_split_s=secs,
+               sizes=dict(min=int(sizes.min()), median=float(np.median(sizes)),
+                          max=int(sizes.max())),
+               cap_rows=cap, cap_fraction=cap / n, bytes_per_row=row_bytes)
+    log(f"  build_partitioned: N={n} P={p} in {build_s:.2f} s (codec {secs['codec']:.2f} s, "
+        f"k-means {secs['kmeans']:.2f} s, {p} partition builds {secs['partitions']:.2f} s); "
+        f"partition rows min {sizes.min()} median {np.median(sizes):.1f} max {sizes.max()}; "
+        f"cap {cap} rows ({cap / n:.4f} of N) x {row_bytes} B a row")
+    path = os.path.join(workdir, "index")
+    t0 = time.perf_counter()
+    built.save(path)
+    out["save_s"] = time.perf_counter() - t0
+    out["saved_bytes"] = sum(os.path.getsize(os.path.join(d, f))
+                             for d, _, fs in os.walk(path) for f in fs)
+    del built
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    peng = Engine.load(path, device=dev, residency_rows=cap)
+    store = peng.index.store
+    log(f"  saved in {out['save_s']:.2f} s ({out['saved_bytes'] / 1e9:.3f} GB); loaded with "
+        f"residency_rows={cap}")
+
+    qb = QueryBatch.match(ds.query_features[:PART_QUERIES], ds.query_attrs[:PART_QUERIES],
+                          active=[0])
+    truth = eng.search(qb, SearchParams(k=10, backend="brute")).ids.cpu()
+    wrappers = {"fused_auto": fused_auto, "gather_auto": gather_auto,
+                "adc_scan": adc_scan_scores}
+
+    def point(params, reps: int = 3) -> dict:
+        store.evict_all()
+        store.reset_counters()
+        t1 = time.perf_counter()
+        res = peng.search(qb, params)  # cold: every partition loads
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t1) * 1e3
+        before = {k: w.launches for k, w in wrappers.items()}
+        lat = []
+        for _ in range(reps):
+            t1 = time.perf_counter()
+            res = peng.search(qb, params)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t1) * 1e3)
+        check_result(res, n, qb.batch_size)
+        st = store.stats()
+        if st["peak_resident_rows"] > cap:
+            raise SystemExit(f"partitioned: peak resident rows {st['peak_resident_rows']} > cap {cap}")
+        return dict(recall_at_10=recall_at_k(res.ids.cpu(), truth, 10),
+                    median_ms=statistics.median(lat), cold_ms=cold_ms, store=st,
+                    fp_evals=res.mean_dist_evals, code_evals=res.mean_code_evals,
+                    launches_per_search={k: (w.launches - before[k]) / reps
+                                         for k, w in wrappers.items()})
+
+    out["sweep"] = {}
+    for nprobe in nprobes:
+        params = SearchParams(k=10, nprobe=nprobe, sub_backend="brute", quant="none")
+        if nprobe == 1:
+            torch.cuda.reset_peak_memory_stats()
+        r = out["sweep"][nprobe] = point(params)
+        if nprobe == 1:
+            r["peak_allocated_bytes"] = torch.cuda.max_memory_allocated() - mem0
+            log(f"    peak device bytes allocated above the load's start during nprobe={nprobe}: "
+                f"{r['peak_allocated_bytes']} (cap x bytes a row = {cap * row_bytes})")
+        log(f"  nprobe={nprobe:3d} brute exact: recall@10={r['recall_at_10']:.4f} "
+            f"{r['median_ms']:.2f} ms (cold {r['cold_ms']:.2f}); fp evals {r['fp_evals']:.1f}; "
+            f"launches a search {r['launches_per_search']}; store {r['store']}")
+    if not any(r["store"]["evictions"] > 0 for r in out["sweep"].values()):
+        raise SystemExit("partitioned: the cap forced no eviction at any nprobe")
+    rec = out["sweep"][sp]["recall_at_10"]
+    if rec < PART_RECALL_FLOOR:
+        raise SystemExit(f"partitioned: recall@10 {rec:.4f} at nprobe={sp} < {PART_RECALL_FLOOR}")
+    out["pq"] = point(SearchParams(k=10, nprobe=sp, sub_backend="brute"))
+    log(f"  nprobe={sp} brute pq: recall@10={out['pq']['recall_at_10']:.4f} "
+        f"{out['pq']['median_ms']:.2f} ms; code evals {out['pq']['code_evals']:.1f}; launches a "
+        f"search {out['pq']['launches_per_search']}; store {out['pq']['store']}")
+    out["graph"] = point(SearchParams(k=10, nprobe=sp, sub_backend="graph", pool_size=64,
+                                      enforce_equality=True, quant="none"))
+    log(f"  nprobe={sp} graph (pool 64, enforce_equality): recall@10="
+        f"{out['graph']['recall_at_10']:.4f} {out['graph']['median_ms']:.2f} ms; fp evals "
+        f"{out['graph']['fp_evals']:.1f}; launches a search {out['graph']['launches_per_search']}; "
+        f"store {out['graph']['store']}")
+
+    # the full probe, bit for bit: exact against eng's brute oracle, pq
+    # against a flat brute engine over the same codebook and codes
+    codes = torch.empty((n, ADC_S), dtype=torch.uint8)
+    for pid in range(p):
+        part = peng.index._load_partition(pid)
+        codes[torch.from_numpy(np.array(part.row_ids))] = torch.from_numpy(np.array(part.codes))
+    pidx = peng.index
+    pq_flat = Engine.from_parts(
+        eng.index.features, eng.index.attrs, eng.index.graph, eng.index.metric_cfg,
+        stats=eng.index.stats, device=dev,
+        quant=QuantizedVectors(cfg=pidx.quant_cfg, codes=codes.to(dev), codebook=pidx.codebook),
+    )
+    del codes
+    out["full_probe"] = {}
+    store.evict_all()
+    store.reset_counters()
+    for kind, q in predicate_batches(ds).items():
+        for codec, flat in (("none", eng), ("pq", pq_flat)):
+            want = flat.search(q, SearchParams(k=10, backend="brute"))
+            got = peng.search(q, SearchParams(k=10, nprobe=p, sub_backend="brute",
+                                              quant="none" if codec == "none" else "auto"))
+            same = {f: bool(torch.equal(getattr(got, f).cpu(), getattr(want, f).cpu()))
+                    for f in ("ids", "dists", "sqdists")}
+            out["full_probe"][f"{kind}/{codec}"] = same
+            if not all(same.values()):
+                diff = int((got.ids.cpu() != want.ids.cpu()).sum())
+                raise SystemExit(f"partitioned full probe {kind}/{codec}: not bit for bit equal "
+                                 f"to the flat brute engine ({same}; {diff} ids differ)")
+    log(f"  full probe nprobe={p}, brute sub-backend: ids, dists and sqdists equal to the flat "
+        f"brute engine bit for bit on MATCH, subset, ONE_OF and BETWEEN, exact and pq; store "
+        f"{store.stats()}")
+    # an Engine and its executor refer to each other: only the cycle
+    # collector frees the flat pq engine's 0.6 GB
+    del pq_flat, flat, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 256 requests of phase 4's trace on the partitioned engine
+    tenants, trace = serve_trace(ds, seed)
+    trace = trace[:PART_SERVE_REQUESTS]
+    params = SearchParams(k=10, backend="partitioned", nprobe=sp, sub_backend="brute",
+                          quant="none")
+    stats = ServerStats(peng)
+    t0 = time.perf_counter()
+    resp, _ = serve_loop(peng, trace, serve_registry(tenants, params),
+                         window_ms=SERVE_WINDOW_MS, buckets=SERVE_BUCKETS, stats=stats)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    snap = stats.snapshot()
+    providers = stats.registry.snapshot()["providers"]
+    if not all(isinstance(r, Completed) for r in resp):
+        raise SystemExit(f"partitioned serve: not every response is Completed: "
+                         f"{sorted({type(r).__name__ for r in resp})}")
+    for i in range(0, len(resp), SERVE_SOLO_EVERY):
+        alone = peng.search(QueryBatch.from_queries([trace[i][1].query]), params)
+        if not (np.array_equal(alone.ids[0].cpu().numpy(), resp[i].ids)
+                and np.array_equal(alone.dists[0].cpu().numpy(), resp[i].dists)):
+            raise SystemExit(f"partitioned serve: request {i} (bucket {resp[i].bucket}) differs "
+                             f"from its query searched alone")
+    seg = {k[len("segment_store_"):]: v for k, v in providers.items()
+           if k.startswith("segment_store_")}
+    if not seg:
+        raise SystemExit("partitioned serve: no segment_store provider in the ServerStats registry")
+    lat = snap["latency_ms"]
+    out["serve"] = dict(requests=len(resp), p50_ms=lat["p50"], p99_ms=lat["p99"],
+                        service_ms_p99=snap["service_ms_p99"], batches=snap["batches"],
+                        batch_fill_ratio=snap["batch_fill_ratio"], wall_s=wall_s,
+                        segment_store=seg)
+    log(f"  partitioned serve (nprobe={sp}, brute): {snap['completed']}/{len(resp)} Completed in "
+        f"{snap['batches']} batches, fill {snap['batch_fill_ratio']:.4f}; end-to-end p50 "
+        f"{lat['p50']:.3f} p99 {lat['p99']:.3f} ms (service p99 {snap['service_ms_p99']:.3f}); "
+        f"{wall_s:.2f} s of wall time; every {SERVE_SOLO_EVERY}th response equals its solo search "
+        f"bit for bit; registry segment_store {seg}")
+
+    store.evict_all()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - mem0
+    limit = 2 * max(row_bucket(int(r)) for r in sizes) * row_bytes
+    out["memory"] = dict(after_evict_all_bytes=grown, limit_bytes=limit)
+    log(f"  device memory after evict_all: {grown} bytes above the level before the load "
+        f"(limit: two staged partitions, {limit} bytes)")
+    if grown >= limit:
+        raise SystemExit(f"partitioned: {grown} bytes stay allocated after evict_all (>= {limit})")
+    return out, (peng, qb, SearchParams(k=10, nprobe=sp, sub_backend="brute", quant="none"))
+
+
+def check_partition_probe(dev, peng, qb, params) -> dict:
+    """fused_auto (l2) and adc_scan (l2, K = 256) at the probe shape the
+    partitioned step runs most: the median sub-batch bucket against the
+    median partition bucket at ``params.nprobe``; each against its plain
+    version, its rows against the same rows of a full-batch call bit for
+    bit, timed (one call between CUDA events, and a CUDA-graph replay)
+    beside its bound."""
+    from repro_torch.core import to_tensor
+    from repro_torch.kernels.adc_scan.ops import adc_scan_ref, adc_scan_scores
+    from repro_torch.kernels.fused_auto.ops import fused_auto, fused_auto_ref
+    from repro_torch.partition import row_bucket
+    from repro_torch.partition.search import _batch_bucket, _groups
+
+    pidx = peng.index
+    probes = pidx.probe(qb, params.nprobe, True)
+    groups = _groups(probes)
+    shapes = [(_batch_bucket(q.size, qb.batch_size), row_bucket(int(pidx.summaries.n_rows[pid])),
+               pid) for pid, q in groups.items()]
+    b = statistics.median_low([s[0] for s in shapes])
+    nb = statistics.median_low([s[1] for s in shapes])
+    pid = next(s[2] for s in shapes if s[1] == nb)
+    part = pidx.store.get(pid)
+    n, m = part.features.shape
+    l = part.attrs.shape[1]
+    qv_all = to_tensor(qb.vectors, torch.float32, dev)
+    qa_all = to_tensor(qb.attrs, torch.int32, dev)
+    qv, qa = qv_all[:b].contiguous(), qa_all[:b].contiguous()
+    lut_all = pidx.query_lut(qv_all)
+    lut = lut_all[:b].contiguous()
+    report = {}
+
+    got = fused_auto(qv, qa, part.features, part.attrs, mode="l2")
+    want = fused_auto_ref(qv, qa, part.features, part.attrs, 1.0, "l2")
+    full = fused_auto(qv_all, qa_all, part.features, part.attrs, mode="l2")
+    invariant = bool(torch.equal(got, full[:b]))
+    qsq = (qv.double() ** 2).sum(1)[:, None]
+    xsq = (part.features.double() ** 2).sum(1)[None, :]
+    err = (got.double() - want.double()).abs()
+    tol = FUSED_RTOL_NORMS * (qsq + xsq) + FUSED_ATOL + 1e-6 * want.double().abs()
+    ratio = float((err / tol).max())
+    bytes_ = (b * m + n * m + n * l + b * l * 2) * 4 + b * n * 4
+    ops = 2 * b * n * m + 2 * (b + n) * m + 4 * b * n
+    bound_ms, bound_by = bound(bytes_, ops)
+    report["fused_auto"] = dict(
+        shape=f"B={b} N={n} M={m} L={l} l2 (partition {pid}, {part.n_real} rows)",
+        max_abs_err=float(err.max()), worst_err_over_tol=ratio, bitwise_batch_invariant=invariant,
+        ms=cuda_ms(lambda: fused_auto(qv, qa, part.features, part.attrs, mode="l2")),
+        device_ms=device_ms(lambda: fused_auto(qv, qa, part.features, part.attrs, mode="l2")),
+        plain_ms=cuda_ms(lambda: fused_auto_ref(qv, qa, part.features, part.attrs, 1.0, "l2")),
+        library_ms=cuda_ms(lambda: torch.cdist(qv, part.features)),
+        bound_ms=bound_ms, bound_by=bound_by,
+    )
+    got = adc_scan_scores(lut, part.codes, qa, part.attrs, mode="l2")
+    want = adc_scan_ref(lut, part.codes, qa, part.attrs, 1.0, "l2")
+    full = adc_scan_scores(lut_all, part.codes, qa_all, part.attrs, mode="l2")
+    s = part.codes.shape[1]
+    bytes_ = part.codes.numel() + lut.numel() * 4 + b * n * 4
+    ops = b * n * (s + 1)
+    bound_ms, bound_by = bound(bytes_, ops)
+    report["adc_scan"] = dict(
+        shape=f"B={b} N={n} S={s} K={lut.shape[2]} L={l} l2 (partition {pid})",
+        max_abs_err=float((got.double() - want.double()).abs().max()),
+        bitwise_equal=bool(torch.equal(got, want)),
+        bitwise_batch_invariant=bool(torch.equal(got, full[:b])),
+        ms=cuda_ms(lambda: adc_scan_scores(lut, part.codes, qa, part.attrs, mode="l2")),
+        device_ms=device_ms(lambda: adc_scan_scores(lut, part.codes, qa, part.attrs, mode="l2")),
+        plain_ms=cuda_ms(lambda: adc_scan_ref(lut, part.codes, qa, part.attrs, 1.0, "l2"), reps=5),
+        library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+    )
+    for name, r in report.items():
+        log(f"  partition probe {name} {r['shape']}: kernel {r['ms']:.4f} ms (device "
+            f"{r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); max|err| {r['max_abs_err']:.3e}, "
+            f"rows equal to a full-batch call's bitwise: {r['bitwise_batch_invariant']}")
+    log(f"  probe shapes at nprobe={params.nprobe}: {len(shapes)} groups, sub-batch buckets "
+        f"{sorted(collections.Counter(s[0] for s in shapes).items())}, partition buckets "
+        f"{sorted(collections.Counter(s[1] for s in shapes).items())}")
+    if ratio > 1.0:
+        raise SystemExit(f"partition probe: fused_auto disagrees with its plain version "
+                         f"(err/tol {ratio:.3f})")
+    if not report["adc_scan"]["bitwise_equal"]:
+        raise SystemExit("partition probe: adc_scan is not bitwise equal to its plain version")
+    if not (invariant and report["adc_scan"]["bitwise_batch_invariant"]):
+        raise SystemExit("partition probe: a kernel's rows differ from a full-batch call's")
+    return report
 
 
 def bound(bytes_: float, ops: float) -> tuple[float, str]:
@@ -1494,12 +1842,27 @@ def main(argv=None) -> int:
         run_serve_path, ("gather_auto", "fused_auto"), dev, ds, eng, args.seed)
     (quant_out, pq_eng), quant_launches = drive(
         run_quant_path, ("gather_auto", "fused_auto", "adc_scan", "adc_scan4"), dev, ds, eng)
-    # last: searches timed after the profiler run slower; not counted
-    q = predicate_batches(ds)["MATCH"]
-    profiles = {f"{tag}/{b}": profile_search(e, q, SearchParams(k=10, backend=b))
-                for tag, e in (("exact", eng), ("pq", pq_eng)) for b in ("graph", "brute")}
-    profiles["serve/flush_128"] = profile_call("serve bucket-128 graph flush", serve_flush)
-    del eng, pq_eng, serve_flush
+    log("[4] partitioned: Engine.build_partitioned, saved, loaded under a residency cap")
+    workdir = tempfile.mkdtemp(prefix="partitioned_", dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.perf_counter()
+        (part_out, (peng, part_q, part_params)), part_launches = drive(
+            run_partitioned_path, ("fused_auto", "gather_auto", "adc_scan"),
+            dev, ds, eng, args.seed, workdir)
+        part_out["step_s"] = time.perf_counter() - t0
+        log(f"  partitioned step: {part_out['step_s']:.2f} s")
+        kern["partition_probe"] = check_partition_probe(dev, peng, part_q, part_params)
+        # last: searches timed after the profiler run slower; not counted
+        q = predicate_batches(ds)["MATCH"]
+        profiles = {f"{tag}/{b}": profile_search(e, q, SearchParams(k=10, backend=b))
+                    for tag, e in (("exact", eng), ("pq", pq_eng)) for b in ("graph", "brute")}
+        profiles["serve/flush_128"] = profile_call("serve bucket-128 graph flush", serve_flush)
+        profiles["partitioned/brute"] = profile_call(
+            f"partitioned nprobe={part_params.nprobe} brute",
+            lambda: peng.search(part_q, part_params))
+        del eng, pq_eng, serve_flush, peng
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
 
     # ---- phase 5: the recsys path at the full fm width
@@ -1519,8 +1882,8 @@ def main(argv=None) -> int:
     recsys_small = check_recsys_small(dev, args.seed)
     (recsys_out, calls), recsys_launches = drive(
         run_recsys_path, ("fm_interaction", "fused_auto"), dev, fm_cfg, fm_params, args.seed)
-    launches = {k: exact_launches[k] + serve_launches[k] + quant_launches[k] + recsys_launches[k]
-                for k in wrappers}
+    launches = {k: exact_launches[k] + serve_launches[k] + quant_launches[k] + part_launches[k]
+                + recsys_launches[k] for k in wrappers}
     profiles.update({f"recsys/{label}": profile_call(label, fn) for label, fn in calls.items()})
     del fm_params, calls
     torch.cuda.empty_cache()
@@ -1560,16 +1923,19 @@ def main(argv=None) -> int:
                                        "l2_bound_ms", "every_pair_from_memory_ms",
                                        "lookup_ceiling_ms",
                                        "descent_block", "narrow_block", "wide")
-                if k in kern[name]}}
+                if k in kern[name]},
+         **({"partition_probe": kern["partition_probe"][name]}
+            if name in kern["partition_probe"] else {})}
         for name, (src, rep) in sources.items()
     ]}
     log("[6] summary " + json.dumps({"n": args.n, "main_path": main_out, "serve": serve_out,
-                                     "quantized": quant_out,
+                                     "quantized": quant_out, "partitioned": part_out,
                                      "recsys": recsys_out, "recsys_cut_vocab": recsys_small,
                                      "profiles": profiles, "small_input": small,
                                      "launches": {"exact": exact_launches,
                                                   "serve": serve_launches,
                                                   "quantized": quant_launches,
+                                                  "partitioned": part_launches,
                                                   "recsys": recsys_launches},
                                      "gather_descent_block": kern["gather_auto"]["descent_block"],
                                      "gather_narrow_block": kern["gather_auto"]["narrow_block"],

@@ -1,4 +1,5 @@
-"""Engine facade: one search entry point over the graph and brute backends.
+"""Engine facade: one search entry point over the graph, brute and
+partitioned backends.
 
 ``Engine.search(QueryBatch, SearchParams) -> SearchResult`` runs an
 explicit plan→compile→execute pipeline:
@@ -15,6 +16,10 @@ explicit plan→compile→execute pipeline:
            (``fused_auto``); on a PQ-quantized index an ADC scan of every
            code (``adc_scan`` / ``adc_scan4``) and an exact rerank of the
            pool
+    partitioned  IVF probe and merge over a ``PartitionedStableIndex``
+           (``repro_torch.partition``): the brute or graph sub-backend in
+           each probed partition, streamed through a ``SegmentStore``
+           under a cap of resident rows
 
 Value-set (ONE_OF) and range (BETWEEN) batches compile to [lo, hi]
 interval targets that both backends score natively; ONE_OF membership is
@@ -23,8 +28,8 @@ filters on the brute oracle and a soft AUTO penalty under traversal unless
 ``enforce_equality=True``.
 
 The engine runs on the device that holds its index (``device=None`` at
-construction → the CUDA card). The sharded and partitioned backends are
-not ported yet and raise ``NotImplementedError``.
+construction → the CUDA card). The sharded backend is not ported yet and
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -51,6 +56,7 @@ from repro_torch.core.index import FORMAT, StableIndex
 from repro_torch.core.routing import RoutingConfig, SearchResult
 from repro_torch.kernels.gather_auto.ops import gather_auto
 from repro_torch.obs import trace as obs_trace
+from repro_torch.partition.index import PartitionedStableIndex, is_partitioned_dir
 from repro_torch.quant import (
     QUANT_MODES, QuantConfig, QuantizedVectors, adc_scan, is_pq_mode,
 )
@@ -68,8 +74,8 @@ class SearchParams:
 
     ``pool_size=0`` → max(4k, 32), ``pioneer_size=0`` → 8 (capped at the
     pool), ``rerank_size=0`` → whole pool. ``brute_threshold`` is deprecated
-    (the planner's cost model decides). ``nprobe`` and ``sub_backend``
-    belong to the partitioned backend, which is not ported yet.
+    (the planner's cost model decides). ``nprobe`` (0 → ≈√P) and
+    ``sub_backend`` (auto | graph | brute) steer the partitioned backend.
     """
 
     k: int = 10
@@ -261,12 +267,13 @@ _SEARCHERS: dict[str, Searcher] = {s.name: s for s in (GraphSearcher(), BruteFor
 
 @dataclasses.dataclass
 class Engine:
-    """The one search facade over a single-host ``StableIndex``.
+    """The one search facade over a single-host ``StableIndex`` or a
+    ``PartitionedStableIndex``.
 
     ``cost_model`` may be injected at construction; otherwise it is
     calibrated lazily from one probe the first time an auto-plan needs it."""
 
-    index: StableIndex
+    index: Union[StableIndex, PartitionedStableIndex]
     cost_model_override: Optional[CostModel] = dataclasses.field(
         default=None, repr=False, compare=False
     )
@@ -283,9 +290,11 @@ class Engine:
 
     @property
     def host_attrs(self) -> np.ndarray:
-        """Host copy of the attribute matrix (copied once per engine)."""
+        """Host copy of the attribute matrix (copied once per engine; a
+        partitioned index's is already a host array or memmap)."""
         if self._attrs_np is None:
-            self._attrs_np = self.index.attrs.cpu().numpy()
+            attrs = self.index.attrs
+            self._attrs_np = attrs.cpu().numpy() if isinstance(attrs, Tensor) else attrs
         return self._attrs_np
 
     @property
@@ -295,6 +304,11 @@ class Engine:
         if self._cost_model is None:
             if self.cost_model_override is not None:
                 self._cost_model = self.cost_model_override
+            elif self.is_partitioned:
+                # no global arrays to probe; the model only prices the
+                # sub-backend choice, so the prior will do (a measured
+                # table can still be injected)
+                self._cost_model = planner_mod.default_cost_model(self.index.n_items)
             else:
                 self._cost_model = planner_mod.calibrate(self.index)
         return self._cost_model
@@ -306,6 +320,11 @@ class Engine:
         return self._executor
 
     def searcher(self, name: str) -> Searcher:
+        if name == "partitioned" and name not in _SEARCHERS:
+            # registered on first use, as the reference does
+            from repro_torch.partition.search import PartitionedSearcher
+
+            _SEARCHERS[name] = PartitionedSearcher()
         if name not in _SEARCHERS:
             raise NotImplementedError(f"the {name!r} backend is not ported yet")
         return _SEARCHERS[name]
@@ -329,6 +348,18 @@ class Engine:
         return cls(StableIndex.build(
             features, attrs, help_cfg=help_cfg, quant_cfg=quant_cfg,
             build_graph=build_graph, device=device, **kw,
+        ))
+
+    @classmethod
+    def build_partitioned(
+        cls, features, attrs, n_partitions: int, device=None, **kw
+    ) -> "Engine":
+        """Build an out-of-core engine on ``device`` (None → the CUDA
+        card): IVF coarse partitions over HELP subgraphs with streaming
+        residency (see ``repro_torch.partition``). Keywords forward to
+        ``PartitionedStableIndex.build``."""
+        return cls(PartitionedStableIndex.build(
+            features, attrs, n_partitions, device=device, **kw
         ))
 
     @classmethod
@@ -360,7 +391,13 @@ class Engine:
     # -- introspection -------------------------------------------------------
 
     @property
+    def is_partitioned(self) -> bool:
+        return isinstance(self.index, PartitionedStableIndex)
+
+    @property
     def n_items(self) -> int:
+        if self.is_partitioned:
+            return self.index.n_items
         return int(self.index.features.shape[0])
 
     @property
@@ -369,11 +406,15 @@ class Engine:
 
     @property
     def has_graph(self) -> bool:
+        if self.is_partitioned:
+            return self.index.has_graph
         return int(self.index.graph.shape[1]) > 0
 
     @property
     def quant_mode(self) -> str:
         """Codec attached to the index ("none" when unquantized)."""
+        if self.is_partitioned:
+            return self.index.quant_mode
         return self.index.quant.cfg.mode if self.index.quant is not None else "none"
 
     # -- planning ------------------------------------------------------------
@@ -424,6 +465,9 @@ class Engine:
                 sp.set("reason", plan.reason)
                 sp.set("cost_brute", plan.cost_brute)
                 sp.set("cost_graph", plan.cost_graph)
+                if plan.backend == "partitioned":
+                    sp.set("nprobe", plan.nprobe)
+                    sp.set("sub_backend", plan.sub_backend)
         return self.executor.run(queries, params, plan)
 
     def _predicate_filter(
@@ -445,9 +489,11 @@ class Engine:
     # -- persistence ---------------------------------------------------------
 
     def save(self, path: str) -> None:
-        """Persist the engine in the single-host ``stable-single-v1``
-        layout, with the planner cost model in meta.json (a graph engine
-        that has not planned yet runs the probe once here)."""
+        """Persist the engine: the single-host ``stable-single-v1`` layout,
+        or ``stable-partitioned-v1`` for a partitioned index, with the
+        planner cost model in meta.json (a flat graph engine that has not
+        planned yet runs the probe once here; a partitioned one takes the
+        prior)."""
         extra = {}
         cm = self._cost_model or self.cost_model_override
         if cm is None and self.has_graph:
@@ -457,19 +503,37 @@ class Engine:
         self.index.save(path, extra_meta=extra)
 
     @classmethod
-    def load(cls, path: str, device=None, mmap: bool = False) -> "Engine":
-        """Load a saved single-host engine (either package's) onto
-        ``device`` (None → the CUDA card). A persisted cost model is
-        restored as ``cost_model_override``: load runs no probe."""
+    def load(
+        cls,
+        path: str,
+        device=None,
+        mmap: bool = False,
+        residency_rows: Optional[int] = None,
+    ) -> "Engine":
+        """Load a saved engine (either package's) onto ``device`` (None →
+        the CUDA card), sniffing the format. A persisted cost model is
+        restored as ``cost_model_override``: load runs no probe.
+
+        ``mmap`` memory-maps the single-host array files (partitioned
+        layouts always map theirs: their rows reach the device per
+        partition, on residency). ``residency_rows`` caps a partitioned
+        layout's resident rows (see ``partition.SegmentStore``)."""
         meta_file = os.path.join(path, "meta.json")
         if os.path.exists(os.path.join(path, SHARDED_META)):
             raise NotImplementedError(f"{path} holds a sharded engine; not ported yet")
-        with open(meta_file) as f:
-            meta = json.load(f)
-        if meta.get("format", FORMAT) != FORMAT:
-            raise NotImplementedError(
-                f"{path} holds a {meta['format']!r} engine; only {FORMAT!r} is ported"
+        if is_partitioned_dir(path):
+            index = PartitionedStableIndex.load(
+                path, residency_rows=residency_rows, device=device
             )
-        saved_cm = meta.get("cost_model")
+        else:
+            if residency_rows is not None:
+                raise ValueError("residency_rows only applies to partitioned layouts")
+            with open(meta_file) as f:
+                fmt = json.load(f).get("format", FORMAT)
+            if fmt != FORMAT:
+                raise NotImplementedError(f"{path} holds a {fmt!r} engine; not ported yet")
+            index = StableIndex.load(path, device=device, mmap=mmap)
+        with open(meta_file) as f:
+            saved_cm = json.load(f).get("cost_model")
         override = planner_mod.cost_model_from_table(saved_cm) if saved_cm else None
-        return cls(StableIndex.load(path, device=device, mmap=mmap), cost_model_override=override)
+        return cls(index, cost_model_override=override)

@@ -136,8 +136,12 @@ class Executor:
         plan and the post-filter once, pre-generate the entry pool, and
         close over the backend."""
         engine = self._engine
-        # the brute oracle filters exactly in-kernel; traversals post-filter
-        do_filter = plan.backend != "brute" and (
+        # the brute oracle filters exactly in-kernel, and so does a
+        # partitioned plan whose sub-backend scans; traversals post-filter
+        acts_like_brute = plan.backend == "brute" or (
+            plan.backend == "partitioned" and plan.sub_backend == "brute"
+        )
+        do_filter = not acts_like_brute and (
             sig.has_one_of or (sig.enforce and sig.targets_ndim == 3)
         )
         exec_params, exec_plan = params, plan

@@ -20,8 +20,10 @@ decision near the crossover is not deterministic, so callers that need a
 frozen decision pin ``SearchParams(backend=...)`` or inject a model.
 
 On a quantized index the probe routes over codes, as serving will, and
-fits on the code scorings. The sharded and partitioned rules raise
-``NotImplementedError``.
+fits on the code scorings. A partitioned index plans onto the partitioned
+backend, which resolves ``nprobe`` and prices the brute or graph
+sub-backend at the average partition size (``_plan_partitioned``); it runs
+no probe. The sharded rules raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -75,9 +77,9 @@ def calibration_count() -> int:
 class Plan:
     """Resolved execution plan, inspectable via ``Engine.plan``."""
 
-    backend: str  # graph | brute
+    backend: str  # graph | brute | partitioned
     quant_mode: str  # none | sq8 | pq-family (resolved from params × index)
-    routing_cfg: Optional[RoutingConfig]  # None for the brute backend
+    routing_cfg: Optional[RoutingConfig]  # None unless a traversal runs
     reason: str  # human-readable planner justification
     cost_brute: Optional[float] = None  # predicted brute cost (fp-eval units)
     cost_graph: Optional[float] = None  # predicted graph cost (fp-eval units)
@@ -292,25 +294,42 @@ def make_plan(engine: "Engine", queries: QueryBatch, params: "SearchParams") -> 
     """Resolve (backend, quant_mode, routing_cfg, predicted costs) for one
     batch. Rules, first match wins:
 
-      1. ``params.backend`` override (graph | brute)
-      2. no HELP graph (``build_graph=False``) → "brute"
-      3. deprecated ``params.brute_threshold`` explicitly set → fixed-N rule
-      4. calibrated cost model: brute vs graph at the predicted per-query
+      1. ``params.backend`` override (validated against the index kind)
+      2. partitioned index → "partitioned"
+      3. no HELP graph (``build_graph=False``) → "brute"
+      4. deprecated ``params.brute_threshold`` explicitly set → fixed-N rule
+      5. calibrated cost model: brute vs graph at the predicted per-query
          cost crossover for this (N, pool, predicate width, batch)
+
+    A "partitioned" plan also resolves ``nprobe`` (explicit
+    ``params.nprobe`` or ≈√P) and the per-partition ``sub_backend``.
     """
     if queries.attr_dim != engine.attr_dim:
         raise ValueError(f"query attr_dim {queries.attr_dim} != index {engine.attr_dim}")
-    if params.backend in ("sharded", "partitioned"):
+    if params.backend == "sharded":
         raise NotImplementedError(
-            f"backend={params.backend!r}: the {params.backend} backend is not "
-            "ported yet; the port serves the graph and brute backends"
+            "backend='sharded': the sharded backend is not ported yet; the "
+            "port serves the graph, brute and partitioned backends"
         )
     cost_brute = cost_graph = None
     if params.backend != "auto":
         backend = params.backend
+        if backend == "partitioned" and not engine.is_partitioned:
+            raise ValueError(
+                "backend='partitioned' needs a partitioned index "
+                "(Engine.build_partitioned / a partitioned save dir)"
+            )
+        if backend != "partitioned" and engine.is_partitioned:
+            raise ValueError(
+                f"backend={backend!r} unavailable on a partitioned index: "
+                "use 'auto' or 'partitioned' (sub-backend is planned per "
+                "partition; nprobe=P reproduces the unpartitioned scan)"
+            )
         if backend == "graph" and not engine.has_graph:
             raise ValueError("backend='graph' but the index has no graph")
         reason = "explicit backend override"
+    elif engine.is_partitioned:
+        backend, reason = "partitioned", "index is partitioned (IVF coarse quantizer)"
     elif not engine.has_graph:
         backend, reason = "brute", "index built without a HELP graph"
     elif params.brute_threshold is not None:
@@ -350,11 +369,73 @@ def make_plan(engine: "Engine", queries: QueryBatch, params: "SearchParams") -> 
             f"fp-eval units/query → {backend}"
         )
 
-    quant_mode = engine._resolve_quant(params, backend)
+    sub_backend, nprobe = "", 0
+    if backend == "partitioned":
+        sub_backend, nprobe, cost_brute, cost_graph, sub_reason = (
+            _plan_partitioned(engine, queries, params)
+        )
+        reason = f"{reason}; {sub_reason}"
+
+    # the codec follows the backend that scores rows: for a partitioned
+    # plan its sub-backend (a brute sub-scan has no sq8 path either)
+    quant_mode = engine._resolve_quant(params, sub_backend or backend)
     routing_cfg = None
-    if backend == "graph":
+    if backend == "graph" or sub_backend == "graph":
         routing_cfg = params.routing_config(quant_mode, params.enforce_equality)
     return Plan(
         backend=backend, quant_mode=quant_mode, routing_cfg=routing_cfg,
         reason=reason, cost_brute=cost_brute, cost_graph=cost_graph,
+        sub_backend=sub_backend, nprobe=nprobe,
     )
+
+
+def _plan_partitioned(
+    engine: "Engine", queries: QueryBatch, params: "SearchParams"
+) -> tuple[str, int, float, Optional[float], str]:
+    """Resolve (sub_backend, nprobe, cost_brute, cost_graph, reason) for a
+    partitioned plan.
+
+    nprobe: explicit ``params.nprobe`` wins; otherwise the IVF default ≈√P
+    (clamped to [1, P]). Sub-backend pricing reuses the flat cost model at
+    the *average* partition size: both alternatives pay P centroid
+    scorings, then either one scan over the ~nprobe·N/P probed rows or
+    nprobe traversals of ~N/P rows each. "graph" is only on the table when
+    the partitions were built with HELP subgraphs.
+    """
+    p = engine.index.n_partitions
+    nprobe = params.nprobe or int(round(math.sqrt(p)))
+    nprobe = max(1, min(nprobe, p))
+    cm = engine.cost_model
+    n = engine.n_items
+    avg_rows = max(int(math.ceil(n / max(p, 1))), 1)
+    probe_rows = min(nprobe * avg_rows, n)
+    q = "none" if params.quant == "none" else engine.quant_mode
+    cost_brute = float(p) + cm.brute_cost(
+        n=probe_rows,
+        pool=min(params.effective_pool, probe_rows),
+        quant_mode=q if is_pq_mode(q) else "none",
+    )
+    if params.sub_backend == "graph" and not engine.has_graph:
+        raise ValueError("sub_backend='graph' but the partitions have no HELP subgraphs")
+    if params.sub_backend == "brute":
+        return ("brute", nprobe, cost_brute, None,
+                f"nprobe={nprobe}/{p}, sub-backend brute (explicit override)")
+    if not engine.has_graph:
+        return ("brute", nprobe, cost_brute, None,
+                f"nprobe={nprobe}/{p}, sub-backend brute (no HELP subgraphs)")
+    widens = queries.has_one_of or (params.enforce_equality and queries.has_intervals)
+    cost_graph = float(p) + nprobe * cm.graph_cost(
+        n=avg_rows,
+        pool=min(params.effective_pool, avg_rows),
+        batch=queries.batch_size,
+        width=predicate_width(queries) if widens else 0.0,
+        quant_mode=q,
+        rerank=params.rerank_size,
+    )
+    if params.sub_backend == "graph":
+        sub, why = "graph", "explicit override"
+    else:
+        sub = "brute" if cost_brute <= cost_graph else "graph"
+        why = f"brute≈{cost_brute:.0f} vs graph≈{cost_graph:.0f}/query"
+    return (sub, nprobe, cost_brute, cost_graph,
+            f"nprobe={nprobe}/{p}, sub-backend {sub} ({why})")

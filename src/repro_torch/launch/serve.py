@@ -6,20 +6,20 @@ are admitted per tenant (token bucket + k/pool caps), coalesced by
 compatible plan signature inside a micro-batch window, padded up the bucket
 ladder and executed through one shared ``Engine`` — repeated windows replay
 cached executables and compile nothing. One engine is built (or loaded from
-``--index-dir``, a ``stable-single-v1`` index saved by either package) once
-and reused for the whole stream; all timing comes from ``ServerStats``
+``--index-dir``, a ``stable-single-v1`` or ``stable-partitioned-v1`` index
+saved by either package; ``--residency-rows`` caps a partitioned index's
+device-resident rows) once and reused for the whole stream; all timing comes from ``ServerStats``
 (end-to-end p50/p95/p99, batch-fill ratio, plan-cache hit rate, per-tenant
 QPS), not ad-hoc stopwatches.
 
 The engine runs on the CUDA card unless ``--device cpu`` asks for the
 kernels' plain PyTorch versions; without a card the default raises.
 
-Five of the reference's options need modules that are not ported yet: set
+Four of the reference's options need modules that are not ported yet: set
 to anything but their default, each exits with an error before anything is
 built. ``--writes``, ``--write-rate`` and ``--max-delta-rows`` wait for the
-mutable engine (ROADMAP queue 1, item 8), ``--hot-rows`` for hot/cold
-tiering (item 9) and ``--residency-rows`` for the partitioned store
-(item 7).
+mutable engine (ROADMAP queue 1, item 8) and ``--hot-rows`` for hot/cold
+tiering (item 9).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --n 4000 --requests 128
@@ -27,6 +27,8 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --n 20000 --quant pq \\
       --tenants 8 --window-ms 4 --buckets 1,8,32
   PYTHONPATH=src python -m repro_torch.launch.serve --index-dir DIR --rate 200
+  PYTHONPATH=src python -m repro_torch.launch.serve --index-dir PART_DIR \
+      --residency-rows 65536
   PYTHONPATH=src python -m repro_torch.launch.serve --n 20000 \\
       --metrics-port 9100 --trace-sample 16 --trace-out trace.json
 """
@@ -45,7 +47,6 @@ UNPORTED = {
     "write_rate": "the mutable engine (ROADMAP queue 1, item 8)",
     "max_delta_rows": "the mutable engine (ROADMAP queue 1, item 8)",
     "hot_rows": "hot/cold tiering (ROADMAP queue 1, item 9)",
-    "residency_rows": "the partitioned segment store (ROADMAP queue 1, item 7)",
 }
 
 
@@ -99,9 +100,8 @@ def main(argv=None) -> None:
                          "yet (ROADMAP item 8): any value but 0 exits with "
                          "an error")
     ap.add_argument("--residency-rows", type=int, default=0,
-                    help="partitioned --index-dir only: cap of device-"
-                         "resident rows; not ported yet (ROADMAP item 7): "
-                         "> 0 exits with an error")
+                    help="partitioned --index-dir only: cap on device-"
+                         "resident rows (0 = everything may stay resident)")
     ap.add_argument("--max-delta-rows", type=int, default=1024,
                     help="compaction trigger of the write path; not ported "
                          "yet (ROADMAP item 8): any value but 1024 exits "
@@ -143,7 +143,8 @@ def main(argv=None) -> None:
     if args.index_dir:
         print(f"loading engine from {args.index_dir} onto {dev} "
               "(one engine reused for the whole stream)")
-        eng = Engine.load(args.index_dir, device=dev)
+        eng = Engine.load(args.index_dir, device=dev,
+                          residency_rows=args.residency_rows or None)
     else:
         print(f"building index over {args.n} nodes on {dev} "
               f"({args.profile} profile, quant={args.quant})")
@@ -239,6 +240,12 @@ def main(argv=None) -> None:
     for t, c in snap["per_tenant"].items():
         print(f"    {t}: {c['completed']}/{c['submitted']} served "
               f"({c['qps']:.0f} qps, {c['rejected']} shed)")
+    if eng.is_partitioned:
+        store = eng.index.store.stats()
+        print(f"  segment store: {store['loads']} loads, {store['hits']} hits, "
+              f"{store['evictions']} evictions, {store['prefetch_hits']} prefetch "
+              f"hits; peak {store['peak_resident_rows']} of "
+              f"{store['cap_rows']} resident rows")
     if "result_cache" in snap:
         rc = snap["result_cache"]
         print(f"  result cache: {rc['hits']} hits / {rc['misses']} misses "

@@ -6,15 +6,16 @@ streaming histograms (``serve_queue_ms`` / ``serve_service_ms`` /
 ``serve_total_ms`` — fixed log-spaced buckets, so a
 long-running server's memory does not grow with every completion), and
 every other counter owner in the stack — the executor's plan cache, the
-compiled-plan counter and the serve-layer ``ResultCache`` — is registered
+compiled-plan counter, a partitioned engine's ``SegmentStore``
+(``segment_store``) and the serve-layer ``ResultCache`` — is registered
 as a pull-based *provider* on the same registry, so one scrape surface
 (``/metrics``, ``/metrics.json`` via ``repro_torch.obs.MetricsServer``)
 sees them all with zero new work on any hot path. The port has no jit:
 ``core.routing.trace_count`` counts compiled search plans, and the
 ``retraces`` / ``jit_hit_rate`` keys read it where the reference reads its
-jit trace count. The reference's delta/WAL/merge, tier and
-``SegmentStore`` providers come with the engines that own them (ROADMAP
-queue 1, items 8, 9 and 7); every engine of this package is immutable, so
+jit trace count. The reference's delta/WAL/merge and tier providers come
+with the engines that own them (ROADMAP queue 1, items 8 and 9); every
+engine of this package is immutable, so
 the write counters here count shed writes only, and the applied-write and
 merge keys of ``snapshot()`` stay 0 beside the reference's.
 
@@ -110,6 +111,9 @@ class ServerStats:
         if eng is None:
             return
         reg.register_provider("executor", lambda: eng.executor.stats())
+        store = getattr(getattr(eng, "index", None), "store", None)
+        if store is not None:  # partitioned: shard residency LRU
+            reg.register_provider("segment_store", store.stats)
 
     def _serve_counters(self) -> dict:
         with self._lock:

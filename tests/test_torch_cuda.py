@@ -437,3 +437,94 @@ def test_serve_loop_on_card_equals_solo_searches(cuda_dev, backend):
         alone = eng.search(QueryBatch.from_queries([q]), params)
         assert np.array_equal(alone.ids[0].cpu().numpy(), r.ids)
         assert np.array_equal(alone.dists[0].cpu().numpy(), r.dists)
+
+
+# ---------------------------------------------------------------------------
+# the partitioned backend on the card
+# ---------------------------------------------------------------------------
+
+
+def _part_batches(ds, b: int = 64):
+    """MATCH, subset, ONE_OF and BETWEEN batches of ``b`` float queries."""
+    qf, qa = ds.query_features[:b], ds.query_attrs[:b]
+    return {
+        "match": QueryBatch.match(qf, qa),
+        "subset": QueryBatch.match(qf, qa, active=[0, 1]),
+        "one_of": QueryBatch.from_queries([
+            Query(qf[i], [ONE_OF(int(a[0]), (int(a[0]) + 1) % 3), MATCH(int(a[1])), ANY,
+                          MATCH(int(a[3])), MATCH(int(a[4]))]) for i, a in enumerate(qa)]),
+        "between": QueryBatch.from_queries([
+            Query(qf[i], [BETWEEN(0, 1), MATCH(int(a[1])), MATCH(int(a[2])), ANY, ANY])
+            for i, a in enumerate(qa)]),
+    }
+
+
+@pytest.mark.parametrize("mode", ["none", "pq", "pq4"])
+def test_partitioned_full_probe_bit_exact_on_float_data(cuda_dev, mode):
+    """n = 20,000 float rows, P = 16: the full probe with the brute
+    sub-backend equals the flat brute engine bit for bit on the four
+    predicate kinds (the kernels give a row the same bits in any batch,
+    tile or partition)."""
+    from repro_torch.partition import row_bucket
+
+    ds = make_hybrid_dataset(n=20_000, n_queries=64, profile="sift", seed=3)
+    qc = QuantConfig(mode, pq_subspaces=32)
+    flat = Engine.build(ds.features, ds.attrs, quant_cfg=qc, build_graph=False, device=cuda_dev)
+    part = Engine.build_partitioned(ds.features, ds.attrs, n_partitions=16, quant_cfg=qc,
+                                    build_graph=False, device=cuda_dev)
+    buckets = [row_bucket(int(r)) for r in part.index.summaries.n_rows]
+    part.index.set_residency(sum(buckets) // 2)  # stream under a cap as well
+    for kind, q in _part_batches(ds).items():
+        want = flat.search(q, SearchParams(k=10, backend="brute"))
+        got = part.search(q, SearchParams(k=10, nprobe=16, sub_backend="brute"))
+        for f in ("ids", "dists", "sqdists"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f"{mode}/{kind}: {f}"
+    assert part.index.store.stats()["evictions"] > 0
+
+
+def _part_store(dev, n_parts: int = 4, rows: int = 3000):
+    from repro_torch.partition import PartitionData, SegmentStore
+
+    rng = np.random.default_rng(0)
+    parts = {pid: PartitionData(
+        features=rng.standard_normal((rows + pid, 64)).astype(np.float32),
+        attrs=rng.integers(0, 3, (rows + pid, 5)).astype(np.int32),
+        graph=rng.integers(-1, rows, (rows + pid, 12)).astype(np.int32),
+        codes=rng.integers(0, 256, (rows + pid, 32)).astype(np.uint8),
+        row_ids=np.arange(rows + pid, dtype=np.int64) * n_parts + pid,
+    ) for pid in range(n_parts)}
+    return SegmentStore(parts.__getitem__, cap_rows=4096 * n_parts, device=dev)
+
+
+def test_prefetched_partition_equals_a_synchronous_load(cuda_dev):
+    """A partition staged by the prefetch worker on the store's copy stream
+    and claimed on the default stream holds what a synchronous load holds,
+    and a kernel queued on the default stream right after the claim reads
+    it whole."""
+    store = _part_store(cuda_dev)
+    store.prefetch(1)
+    store.prefetch(2)
+    claimed = store.get(1)
+    tail = claimed.features.sum(1)  # queued on the default stream at once
+    assert store.stats()["prefetch_hits"] == 1
+    sync = _part_store(cuda_dev)._materialize(1)
+    for f in ("features", "attrs", "graph", "codes", "row_ids"):
+        a, b = getattr(claimed, f), getattr(sync, f)
+        assert a.device.type == "cuda" and torch.equal(a, b), f
+    assert torch.equal(tail, sync.features.sum(1))
+    assert torch.equal(store.get(2).row_ids, _part_store(cuda_dev)._materialize(2).row_ids)
+
+
+def test_evict_all_returns_device_memory(cuda_dev):
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    store = _part_store(cuda_dev)
+    for pid in range(4):
+        store.prefetch((pid + 1) % 4)
+        store.get(pid)
+    assert torch.cuda.memory_allocated() > before
+    store.evict_all()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated() == before

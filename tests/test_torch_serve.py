@@ -433,8 +433,7 @@ def test_cli_serves_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag,item", [("--writes", 8), ("--write-rate", 8),
-                                       ("--max-delta-rows", 8), ("--hot-rows", 9),
-                                       ("--residency-rows", 7)])
+                                       ("--max-delta-rows", 8), ("--hot-rows", 9)])
 def test_cli_unported_flags_exit_before_building(capsys, flag, item):
     with pytest.raises(SystemExit) as exc:
         tlaunch.main(["--device", "cpu", flag, "8"])
