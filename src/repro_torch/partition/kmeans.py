@@ -16,14 +16,12 @@ are the reference's, call for call, so both packages start from the same
 rows and see the same batches. ``torch.argmin`` keeps the first minimum,
 as ``jnp.argmin`` does.
 
-Training scores its mini-batches with a plain product (``_sqdist``), as
-the reference does. Routing (``scores``) and assignment score through the
-``fused_auto`` kernel in l2 mode, the same function
-max(‖x‖² + ‖c‖² − 2x·c, 0): on the card a cuBLAS product may change a
-row's bits with the batch size, the kernel does not, so a query probes
-the same partitions alone or inside any batch (the serving layer returns
-a batched answer equal to the solo one bit for bit). On the CPU the
-kernel's plain version is the same product as ``_sqdist``.
+Every squared distance here goes through the ``fused_auto`` kernel in l2
+mode, the reference's function max(‖x‖² + ‖c‖² − 2x·c, 0): on the card a
+cuBLAS product may change a row's bits with the batch size, the kernel
+does not, so a query probes the same partitions alone or inside any batch
+(the serving layer returns a batched answer equal to the solo one bit for
+bit). On the CPU the kernel's plain version is the reference's product.
 """
 from __future__ import annotations
 
@@ -43,13 +41,6 @@ __all__ = ["CoarseQuantizer", "assign_partitions", "train_coarse"]
 
 
 def _sqdist(x: Tensor, c: Tensor) -> Tensor:
-    """(B, M) × (P, M) → (B, P) squared L2."""
-    x2 = (x * x).sum(1, keepdim=True)
-    c2 = (c * c).sum(1)[None, :]
-    return torch.clamp_min(x2 + c2 - 2.0 * (x @ c.T), 0.0)
-
-
-def _coarse_sqdist(x: Tensor, c: Tensor) -> Tensor:
     """(B, M) × (P, M) → (B, P) squared L2 through ``fused_auto`` (l2 mode
     reads no attributes: a zero column stands in for them)."""
     qa = torch.zeros((x.shape[0], 1), dtype=torch.int32, device=x.device)
@@ -100,7 +91,7 @@ class CoarseQuantizer:
 
     def scores(self, qv) -> Tensor:
         """(B, P) squared centroid distances: the coarse routing signal."""
-        return _coarse_sqdist(to_tensor(qv, torch.float32, self.device), self.device_centroids)
+        return _sqdist(to_tensor(qv, torch.float32, self.device), self.device_centroids)
 
     def assign(self, features, chunk_rows: int = 200_000) -> np.ndarray:
         """(N,) nearest-centroid partition id, chunked over (memmap) rows."""
@@ -128,7 +119,7 @@ def assign_partitions(
     for i in range(0, n, chunk_rows):
         x = to_tensor(np.asarray(features[i : i + chunk_rows]), torch.float32, dev)
         out[i : i + x.shape[0]] = (
-            torch.argmin(_coarse_sqdist(x, c), dim=1).to(torch.int32).cpu().numpy()
+            torch.argmin(_sqdist(x, c), dim=1).to(torch.int32).cpu().numpy()
         )
     return out
 
