@@ -12,9 +12,11 @@ is held, and to what:
 * (c) the ``stable-partitioned-v1`` layout both ways: each package loads
   the other's directory (summaries and row ids equal, centroids within
   rtol 1e-5, saved arrays equal byte for byte), and both search one saved
-  directory alike (ids equal except at near-ties, sqdists within rtol
-  1e-5; the ADC sums and tables of the two packages differ in the last
-  bits, so a pq pool may differ at a near-tie);
+  directory alike: exact searches (brute and graph) equal bit for bit,
+  since every partial sum on integer data is exact; pq searches with ids
+  equal except at near-ties and sqdists within rtol 1e-5, since the two
+  packages' ADC tables and sums differ in the last bits, so a pool may
+  differ at a near-tie of code scores (on this data they came out equal);
 * (d) the full probe with the brute sub-backend equals the port's flat
   brute engine bit for bit for every codec and predicate kind;
 * (e) summary pruning equals the reference's and never drops a partition
@@ -111,11 +113,15 @@ def assert_bit_equal(res, ref, ctx=""):
         assert torch.equal(getattr(res, f), getattr(ref, f)), f"{ctx}: {f}"
 
 
-def assert_near(jres, tres, ctx=""):
+def assert_near(jres, tres, ctx="", exact=False):
     """Ids equal except at near-ties of the reference's sqdists; sqdists
-    within rtol 1e-5."""
+    within rtol 1e-5; with ``exact``, both equal bit for bit."""
     jd, ji = np.asarray(jres.sqdists), np.asarray(jres.ids)
     td, ti = tres.sqdists.numpy(), tres.ids.numpy()
+    if exact:
+        np.testing.assert_array_equal(ti, ji, err_msg=ctx)
+        np.testing.assert_array_equal(td, jd, err_msg=ctx)
+        return
     np.testing.assert_allclose(td, jd, rtol=1e-5, err_msg=ctx)
     tie = 1e-6 + 1e-5 * np.abs(jd)
     for b, p in zip(*np.nonzero(ji != ti)):
@@ -309,7 +315,8 @@ def test_both_packages_search_one_directory_alike(pair, data, sub, quant):
             p = dict(k=K, nprobe=nprobe, sub_backend=sub, quant=quant)
             jres = jeng.search(jb[kind], japi.SearchParams(**p))
             tres = teng.search(tb[kind], tapi.SearchParams(**p))
-            assert_near(jres, tres, f"{kind}/{sub}/{quant}/nprobe={nprobe}")
+            assert_near(jres, tres, f"{kind}/{sub}/{quant}/nprobe={nprobe}",
+                        exact=quant == "none")
 
 
 def test_reference_directory_searches_alike(saved, data):
@@ -320,7 +327,8 @@ def test_reference_directory_searches_alike(saved, data):
         for quant in ("none", "auto"):
             p = dict(k=K, nprobe=P, sub_backend="brute", quant=quant)
             assert_near(jeng.search(jb[kind], japi.SearchParams(**p)),
-                        teng.search(tb[kind], tapi.SearchParams(**p)), f"{kind}/{quant}")
+                        teng.search(tb[kind], tapi.SearchParams(**p)), f"{kind}/{quant}",
+                        exact=quant == "none")
 
 
 # ---------------------------------------------------------------------------
