@@ -67,7 +67,27 @@ Phases:
      on the four predicate kinds; device memory back after evict_all; 256
      requests of the serve trace on the partitioned engine, every 16th
      equal to its solo search; fused_auto and adc_scan at the probe shape
-     it runs most, timed beside their bounds; one profiled search
+     it runs most, timed beside their bounds; one profiled search.
+     Then the mutable step on the exact index, handed over so that the
+     merge frees it: a MutableEngine with a WAL; with no writes its
+     search equals Engine.search bit for bit; 3,072 inserts (a second
+     draw, --seed + 1), 512 overwrites and 512 deletes; the federated
+     brute read against a fresh oracle over the logical corpus (ids
+     except near-ties, sqdists rtol 1e-5), no deleted id on either
+     backend, inserted and overwritten rows first for their new vectors;
+     the WAL replayed over the base bit for bit; a synchronous merge timed
+     by part (apply_rows, routed search, hop scoring, repair; apply),
+     link_nodes's launches, the linked rows' in-edges, device memory once
+     the old index is released, brute results unchanged across it; a
+     checkpoint loaded back with its WAL bit for bit; 1,024 reads with 256
+     writes through serve_loop, then through a ThreadedServer that merges
+     in the background past 128 delta rows (read-your-writes on every
+     insert, read latency with and without a merge in flight,
+     serve_merge_ms scraped); fused_auto at the delta scan and
+     gather_auto at the link hop against their plain versions, timed
+     beside their bounds; and the reference's freshness script at N =
+     20,000 on the card and the CPU (graph MATCH recall@10 ≥ 0.9 before
+     and after the merge, within 0.02 of the CPU's)
   5. recsys: the fm model at its full width (F=39 fields, V=1,000,000 rows a
      field, D=10; 1.56 GB of tables and 156 MB of linear weights drawn on
      the card from --seed). fm_interaction at serve_p99 (B=512), serve_bulk
@@ -81,7 +101,8 @@ Phases:
      several batches, then each profiled once; last of all, one more
      Engine.build of phase 4's data under the profiler
   6. a JSON line of every kernel's launches in phases 4 and 5 (the exact,
-     serve, quantized, partitioned and recsys paths, each counted from 0; a
+     serve, quantized, partitioned, mutable and recsys paths, each counted
+     from 0; a
      kernel of a path that the path never launched fails the run), error
      and times
 
@@ -187,6 +208,30 @@ SERVE_SOLO_EVERY, SERVE_THREADED, SERVE_CLIENTS = 16, 512, 4
 #: trace
 PART_QUERIES, PART_RECALL_FLOOR, PART_SERVE_REQUESTS = 128, 0.9, 256
 PART_HELP_KW = dict(gamma=12, gamma_new=4, max_rounds=4)
+#: phase 4's mutable step: the reference's write script
+#: (tests/test_mutable.py:68-90) at N = 1M on a copy of the exact engine:
+#: inserts at fresh ids from a second draw of the profile (seed + 1),
+#: overwrites of main rows (vector + 0.05·N(0, 1), attrs (a + 1) mod
+#: labels) and deletes of other main rows: 3,584 delta rows, under
+#: CompactionPolicy's default max_delta_rows of 4,096
+MUT_INSERTS, MUT_OVERWRITES, MUT_DELETES = 3072, 512, 512
+#: serving with writes: phase 4's 1,024 reads with 192 inserts and 64
+#: deletes spread through them, through serve_loop (no merge) and then
+#: through a ThreadedServer that merges in the background past 128 delta
+#: rows: the reads from SERVE_CLIENTS closed-loop clients (a client waits
+#: for each answer, so a read's latency is its service, not a backlog),
+#: the writes from one more thread at MUT_WRITE_RATE a second, each
+#: acknowledged insert read back at once on the brute backend
+MUT_SERVE_INSERTS, MUT_SERVE_DELETES, MUT_THREADED_DELTA = 192, 64, 128
+MUT_WRITE_RATE = 64.0
+#: N = 20,000 (phase 3's size): the reference's freshness script
+#: (tests/test_mutable.py:526-588: HelpConfig(24, 6, 8), pool 128, pioneer
+#: 16, graph MATCH) scaled to 1,500 inserts and 750 deletes; its recall bar
+MUT_SMALL_INSERTS, MUT_SMALL_DELETES, MUT_RECALL_FLOOR = 1500, 750, 0.9
+#: the kernels at the step's shapes: the delta scan (B = 128 against the
+#: capacity of 4,096 rows) and link_nodes's hop scoring (D = 3,584 linked
+#: rows against pool·Γ = 128·32 = 4,096 candidates)
+MUT_SCAN_ROWS, MUT_HOP_SHAPE = 4096, (3584, 4096)
 
 
 def log(*a):
@@ -1503,6 +1548,572 @@ def check_partition_probe(dev, peng, qb, params) -> dict:
     return report
 
 
+def ids_alike(got_ids, want_ids, want_sq) -> bool:
+    """Ids equal except at near-ties of ``want_sq`` (|Δd| ≤ 2·(1e-6 +
+    1e-5·|d|)), row by row; tensors on any device."""
+    gi, wi, wd = (t.cpu().numpy() for t in (got_ids, want_ids, want_sq))
+    for r, p in zip(*np.nonzero(gi != wi)):
+        tie = 1e-6 + 1e-5 * abs(float(wd[r, p]))
+        near = np.abs(wd[r] - wd[r, p]) <= 2 * tie
+        near[p] = False
+        if not near.any():
+            return False
+    return True
+
+
+def run_mutable_path(dev, ds, base: list, seed: int, workdir: str):
+    """Phase 4, mutable: a MutableEngine over phase 4's exact index (handed
+    over in ``base`` as (index, cost model); the caller keeps no reference,
+    so the merge can free it). The fast path against Engine.search bit for
+    bit; the write script logged to a WAL; the federated brute read against
+    a fresh oracle over the logical corpus, no deleted id on either backend,
+    inserted and overwritten rows found by their new vectors; the WAL
+    replayed over the base bit for bit; a synchronous merge, timed by part;
+    brute results unchanged across it; a checkpoint loaded back bit for
+    bit; then serving with writes through serve_loop and a ThreadedServer
+    that merges in the background. Returns the results and the merged
+    engine, which ``check_mutable_kernels`` reads."""
+    import threading
+    import urllib.request
+
+    from repro_torch.api import MATCH, Engine, Query, QueryBatch, SearchParams
+    from repro_torch.core import to_tensor
+    from repro_torch.core.baselines import recall_at_k
+    from repro_torch.core.graph_ops import in_degrees
+    from repro_torch.core.index import StableIndex
+    from repro_torch.data.synthetic import make_hybrid_dataset
+    from repro_torch.kernels.fused_auto.ops import fused_auto
+    from repro_torch.kernels.gather_auto.ops import gather_auto
+    from repro_torch.mutable import CompactionPolicy, MutableEngine
+    from repro_torch.obs.trace import Span
+    from repro_torch.serve import (
+        Completed, Delete, Request, TenantPolicy, ThreadedServer, Upsert, WriteAck, serve_loop,
+    )
+
+    index, cost_model = base.pop()
+    n, mdim = (int(x) for x in index.features.shape)
+    labels = ds.labels_per_dim
+    index_bytes = sum(t.numel() * t.element_size()
+                      for t in (index.features, index.attrs, index.graph))
+    wal_path = os.path.join(workdir, "mutable.wal")
+    params = {b: SearchParams(k=10, backend=b) for b in ("graph", "brute")}
+    batches = predicate_batches(ds)
+    out = {}
+
+    def engine(idx):
+        return Engine(dataclasses.replace(idx), cost_model_override=cost_model)
+
+    def search_all(eng):
+        return {(kind, b): eng.search(q, p) for kind, q in batches.items()
+                for b, p in params.items()}
+
+    def differ(a: dict, b: dict) -> list:
+        return [key for key in a if not all(
+            torch.equal(getattr(a[key], f), getattr(b[key], f))
+            for f in ("ids", "dists", "sqdists", "n_dist_evals"))]
+
+    m = MutableEngine(engine(index), wal_path=wal_path)
+    bad = differ(search_all(m.engine), search_all(m))
+    if bad:
+        raise SystemExit(f"mutable: with no writes, MutableEngine.search differs from "
+                         f"Engine.search on {bad}")
+    log(f"  fast path: with no writes MutableEngine.search equals Engine.search bit for bit on "
+        f"both backends, four kinds, B=128")
+
+    # the write script
+    extra = make_hybrid_dataset(n=MUT_INSERTS + 2 * MUT_SERVE_INSERTS, n_queries=1,
+                                profile="sift", seed=seed + 1)
+    rng = np.random.default_rng(seed + 2)
+    picked = rng.choice(n, MUT_OVERWRITES + MUT_DELETES + 2 * MUT_SERVE_DELETES, replace=False)
+    over = np.sort(picked[:MUT_OVERWRITES])
+    deleted = np.sort(picked[MUT_OVERWRITES:MUT_OVERWRITES + MUT_DELETES])
+    serve_deletes = picked[MUT_OVERWRITES + MUT_DELETES:]
+    new_v = (ds.features[over] + 0.05 * rng.standard_normal((len(over), mdim))).astype(np.float32)
+    new_a = ((ds.attrs[over] + 1) % labels).astype(np.int32)
+    inserted = np.arange(n, n + MUT_INSERTS)
+    t0 = time.perf_counter()
+    for j, i in enumerate(inserted):
+        m.upsert(extra.features[j], extra.attrs[j], id=int(i))
+    for r, i in enumerate(over):
+        m.upsert(new_v[r], new_a[r], id=int(i))
+    for i in deleted:
+        if not m.delete(int(i)):
+            raise SystemExit(f"mutable: delete of visible id {i} was not applied")
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    n_ops = len(inserted) + len(over) + len(deleted)
+    ws = m.write_stats()
+    out["writes"] = dict(ops=n_ops, seconds=write_s, per_s=n_ops / write_s, **ws)
+    out["writes"]["policy_would_merge"] = m.should_merge()
+    log(f"  writes: {len(inserted)} inserts, {len(over)} overwrites, {len(deleted)} deletes in "
+        f"{write_s:.3f} s ({n_ops / write_s:.1f} a second, WAL {ws['wal_bytes']} bytes); delta "
+        f"{ws['delta_rows']} rows ({ws['delta_alive']} alive), {ws['tombstones']} tombstones, "
+        f"logical n={ws['logical_n']}; write_epoch {m.write_epoch}; the default policy's cost "
+        f"gate would merge now: {out['writes']['policy_would_merge']} (direct writes never "
+        f"merge: the merge below is asked for)")
+    if ws["delta_rows"] != MUT_INSERTS + MUT_OVERWRITES or m.merge_count:
+        raise SystemExit(f"mutable: delta {ws['delta_rows']} rows, {m.merge_count} merges")
+
+    # a fresh brute oracle over the logical corpus: main minus deletes
+    # (overwritten rows with their new values), then the inserts
+    keep = np.setdiff1d(np.arange(n), deleted)
+    feats = ds.features[keep]
+    attrs = ds.attrs[keep].copy()
+    pos = np.searchsorted(keep, over)
+    feats[pos] = new_v
+    attrs[pos] = new_a
+    id_of = torch.from_numpy(np.concatenate([keep, inserted])).to(dev)
+    oracle = Engine(StableIndex(
+        features=to_tensor(np.concatenate([feats, extra.features[:MUT_INSERTS]]), torch.float32,
+                           dev),
+        attrs=to_tensor(np.concatenate([attrs, extra.attrs[:MUT_INSERTS]]), torch.int32, dev),
+        graph=torch.zeros((len(id_of), 0), dtype=torch.int32, device=dev),
+        metric_cfg=index.metric_cfg, help_cfg=index.help_cfg, stats=index.stats,
+    ))
+    del feats, attrs
+    deleted_dev = torch.from_numpy(deleted).to(dev)
+    pre, truth = {}, {}
+    for kind, q in batches.items():
+        want = oracle.search(q, params["brute"])
+        want_ids = torch.where(want.ids >= 0, id_of[want.ids.clamp_min(0).long()], -1)
+        got = pre[kind] = m.search(q, params["brute"])
+        truth[kind] = want_ids
+        if not ids_alike(got.ids, want_ids, want.sqdists):
+            raise SystemExit(f"mutable {kind}: federated brute ids differ from the logical "
+                             f"corpus's oracle beyond near-ties")
+        if not torch.allclose(got.sqdists, want.sqdists, rtol=1e-5, atol=0.0):
+            raise SystemExit(f"mutable {kind}: federated brute sqdists differ from the oracle's "
+                             f"beyond rtol 1e-5")
+    del oracle, id_of
+    gc.collect()
+    log("  federated brute read equals a fresh brute oracle over the logical corpus (main minus "
+        "tombstones plus alive delta rows) on MATCH, subset, ONE_OF, BETWEEN: ids except "
+        "near-ties, sqdists rtol 1e-5")
+
+    def self_hits(ids, vecs, attrs_, backend) -> np.ndarray:
+        """For each row, whether a MATCH query with its vector and
+        attributes returns ``ids[r]`` at rank 0."""
+        hits = []
+        for s in range(0, len(ids), 128):
+            q = QueryBatch.match(vecs[s:s + 128], attrs_[s:s + 128])
+            hits.append(m.search(q, params[backend]).ids[:, 0].cpu().numpy() == ids[s:s + 128])
+        return np.concatenate(hits)
+
+    res_all = search_all(m)
+    old = QueryBatch.match(ds.features[over[:128]], ds.attrs[over[:128]])
+    own = torch.from_numpy(over[:128, None].astype(np.int32)).to(dev)
+    if (m.search(old, params["brute"]).ids == own).any():
+        raise SystemExit("mutable brute: an overwritten id came back for its old attributes")
+    for b in params:
+        probe = QueryBatch.match(ds.features[deleted[:128]], ds.attrs[deleted[:128]])
+        res_all["deleted_self", b] = m.search(probe, params[b])
+        for what, ids_, v, a in (("inserted", inserted[:128], extra.features[:128],
+                                  extra.attrs[:128]),
+                                 ("overwritten", over[:128], new_v[:128], new_a[:128])):
+            if not self_hits(ids_, v, a, b).all():
+                raise SystemExit(f"mutable {b}: an {what} row is not first for its own vector")
+    leaked = [key for key, r in res_all.items() if bool(torch.isin(r.ids, deleted_dev).any())]
+    if leaked:
+        raise SystemExit(f"mutable: a deleted id was returned on {leaked}")
+    recall_pre = recall_at_k(res_all["MATCH", "graph"].ids.cpu(), truth["MATCH"].cpu(), 10)
+    out["pre_merge"] = dict(graph_match_recall_at_10=recall_pre)
+    log(f"  no deleted id on either backend (four kinds and the deleted rows' own vectors); 128 "
+        f"inserted and 128 overwritten rows first for their new vectors on both backends, "
+        f"overwritten ids absent for their old attributes on the brute backend; graph MATCH recall@10 against the "
+        f"oracle {recall_pre:.4f} (printed: the algorithm's at N = 1M)")
+
+    # the WAL replayed over the same base
+    t0 = time.perf_counter()
+    m2 = MutableEngine(engine(index), wal_path=wal_path)
+    replay_s = time.perf_counter() - t0
+    if m2.tombstones != m.tombstones or m2.n_items != m.n_items:
+        raise SystemExit("mutable: WAL replay rebuilt another logical state")
+    bad = differ(search_all(m), search_all(m2))
+    if bad:
+        raise SystemExit(f"mutable: searches after WAL replay differ on {bad}")
+    m2.wal.close()
+    del m2, index
+    gc.collect()
+    log(f"  WAL replay over the base: {n_ops} ops in {replay_s:.3f} s; searches equal the "
+        f"original's bit for bit on both backends, four kinds")
+
+    # the merge, synchronous, timed by part
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem_before = torch.cuda.memory_allocated()
+    g0, f0 = gather_auto.launches, fused_auto.launches
+    root = Span("merge")
+    with root:
+        stats = m.merge()
+    torch.cuda.synchronize()
+    link_launches = {"gather_auto": gather_auto.launches - g0,
+                     "fused_auto": fused_auto.launches - f0}
+    split = {c.name: c.duration * 1e3 for c in root.children}
+    gc.collect()
+    torch.cuda.empty_cache()
+    grown = torch.cuda.memory_allocated() - mem_before
+    linked = np.concatenate([inserted, over])
+    deg = in_degrees(m.index.graph, m.engine.n_items)
+    in_share = float((deg[torch.from_numpy(linked).to(dev)] > 0).float().mean().cpu())
+    out["merge"] = dict(stats=stats, split_ms=split, launches=link_launches,
+                        linked_in_edge_share=in_share, memory_grown_bytes=grown,
+                        old_index_bytes=index_bytes)
+    log(f"  merge: prepare {stats['prepare_ms']:.3f} ms (apply_rows {split['apply_rows']:.3f}, "
+        f"routed search {split['link_route']:.3f}, hop scoring + new-new + merge to Γ "
+        f"{split['link_hop']:.3f}, repair {split['link_repair']:.3f}), apply "
+        f"{stats['apply_ms']:.3f} ms; linked {stats['linked']}, repaired {stats['repaired']}; "
+        f"link_nodes launched {link_launches}; {in_share:.4f} of linked rows have an in-edge; "
+        f"device memory {grown} bytes above its level before the merge once the old index "
+        f"({index_bytes} bytes) is released")
+    if stats["linked"] != len(linked) or link_launches["gather_auto"] == 0 \
+            or link_launches["fused_auto"] == 0:
+        raise SystemExit(f"mutable merge: linked {stats['linked']}, launches {link_launches}")
+    if grown >= index_bytes // 4:
+        raise SystemExit(f"mutable merge: {grown} bytes stay allocated: the old index was not "
+                         f"released")
+    bitwise = True
+    for kind, q in batches.items():
+        got = m.search(q, params["brute"])
+        bitwise &= bool(torch.equal(got.sqdists, pre[kind].sqdists))
+        if not (ids_alike(got.ids, pre[kind].ids, pre[kind].sqdists)
+                and torch.allclose(got.sqdists, pre[kind].sqdists, rtol=1e-5, atol=0.0)):
+            raise SystemExit(f"mutable {kind}: brute results changed across the merge")
+    graph_post = m.search(batches["MATCH"], params["graph"]).ids
+    if bool(torch.isin(graph_post, deleted_dev).any()):
+        raise SystemExit("mutable: a deleted id came back after the merge")
+    recall_post = recall_at_k(graph_post.cpu(), truth["MATCH"].cpu(), 10)
+    self_graph = float(self_hits(inserted, extra.features[:MUT_INSERTS],
+                                 extra.attrs[:MUT_INSERTS], "graph").mean())
+    if not self_hits(inserted, extra.features[:MUT_INSERTS], extra.attrs[:MUT_INSERTS],
+                     "brute").all():
+        raise SystemExit("mutable: after the merge an inserted row is not first for its own "
+                         "vector on the brute backend")
+    out["post_merge"] = dict(graph_match_recall_at_10=recall_post, brute_sqdists_bitwise=bitwise,
+                             inserted_self_hit_graph=self_graph)
+    log(f"  after the merge: brute results equal the pre-merge ones (ids except near-ties, "
+        f"sqdists bitwise {bitwise}); graph MATCH recall@10 {recall_post:.4f}; self-hit rate of "
+        f"the {MUT_INSERTS} inserted rows at rank 0 on the graph backend {self_graph:.4f}")
+
+    # checkpoint, then Engine.load + the WAL
+    ck = os.path.join(workdir, "checkpoint")
+    t0 = time.perf_counter()
+    m.checkpoint(ck)
+    ck_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = MutableEngine(Engine.load(ck, device=dev), wal_path=wal_path)
+    load_s = time.perf_counter() - t0
+    if loaded.tombstones != m.tombstones or loaded.n_items != m.n_items:
+        raise SystemExit("mutable: the checkpoint and its WAL rebuild another logical state")
+    bad = differ(search_all(m), search_all(loaded))
+    if bad:
+        raise SystemExit(f"mutable: the reloaded checkpoint's searches differ on {bad}")
+    loaded.wal.close()
+    del loaded
+    gc.collect()
+    shutil.rmtree(ck, ignore_errors=True)
+    out["checkpoint"] = dict(save_s=ck_s, load_s=load_s, wal_bytes=m.write_stats()["wal_bytes"])
+    log(f"  checkpoint in {ck_s:.2f} s (WAL now {out['checkpoint']['wal_bytes']} bytes: the "
+        f"tombstones restated); Engine.load + WAL replay in {load_s:.2f} s equals the "
+        f"checkpointed engine bit for bit on both backends, four kinds")
+
+    # serving with writes: serve_loop, then a ThreadedServer that merges
+    tenants, trace = serve_trace(ds, seed)
+    reg = serve_registry(tenants, params["graph"])
+    reg.register("ryw", TenantPolicy(params=params["brute"]))
+
+    def write_items(half: int):
+        """Inserts and deletes; their request ids (and the read-back
+        requests') lie past the trace's, which are explicit."""
+        base_row = MUT_INSERTS + half * MUT_SERVE_INSERTS
+        ws_ = [Upsert(tenants[j % SERVE_TENANTS], extra.features[base_row + j],
+                      extra.attrs[base_row + j], id=n + base_row + j,
+                      request_id=SERVE_REQUESTS + 2 * j)
+               for j in range(MUT_SERVE_INSERTS)]
+        dl = serve_deletes[half * MUT_SERVE_DELETES:(half + 1) * MUT_SERVE_DELETES]
+        return ws_ + [Delete(tenants[j % SERVE_TENANTS], int(i),
+                             request_id=SERVE_REQUESTS + 2 * MUT_SERVE_INSERTS + j)
+                      for j, i in enumerate(dl)]
+
+    writes = write_items(0)
+    stride = len(trace) // len(writes)
+    mixed = []
+    for i, (t, r) in enumerate(trace):
+        if i % stride == 0 and i // stride < len(writes):
+            mixed.append((t, writes[i // stride]))
+        mixed.append((t, r))
+    m.policy = CompactionPolicy(min_delta_rows=10 ** 9)  # size trigger only: no merge here
+    t0 = time.perf_counter()
+    resp, stats_ = serve_loop(m, mixed, reg, window_ms=SERVE_WINDOW_MS, buckets=SERVE_BUCKETS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    reads = [r for (_, item), r in zip(mixed, resp) if isinstance(item, Request)]
+    acks = [r for (_, item), r in zip(mixed, resp) if not isinstance(item, Request)]
+    if not (all(isinstance(r, Completed) for r in reads)
+            and all(isinstance(r, WriteAck) and r.applied for r in acks)):
+        raise SystemExit("mutable serve_loop: a read not Completed or a write not applied")
+    snap = stats_.snapshot()
+    lat = snap["latency_ms"]
+    out["serve_loop"] = dict(reads=len(reads), writes=len(acks), p50_ms=lat["p50"],
+                             p99_ms=lat["p99"], wall_s=wall_s, writes_block=snap["writes"],
+                             delta=snap["delta"])
+    log(f"  serve_loop with writes: {len(reads)} reads Completed, {len(acks)} writes applied "
+        f"({snap['writes']}); end-to-end p50 {lat['p50']:.3f} p99 {lat['p99']:.3f} ms; "
+        f"{wall_s:.2f} s of wall time; delta {snap['delta']}")
+
+    m.policy = CompactionPolicy(max_delta_rows=MUT_THREADED_DELTA, min_delta_rows=10 ** 9)
+    merges0 = m.merge_count
+    writes = write_items(1)
+    reqs = [r for _, r in trace]
+    answers, lat, ryw, errors = [None] * len(reqs), [], [], []
+    lock = threading.Lock()
+    with ThreadedServer(m, reg, window_ms=SERVE_WINDOW_MS, buckets=SERVE_BUCKETS,
+                        metrics_port=0) as srv:
+        def client(c):
+            """A closed loop: submit one read, wait for it, then the next."""
+            try:
+                for i in range(c, len(reqs), SERVE_CLIENTS):
+                    inflight = srv._merge_inflight
+                    t1 = time.perf_counter()
+                    answers[i] = srv.submit(reqs[i]).result(timeout=600)
+                    ms = (time.perf_counter() - t1) * 1e3
+                    with lock:
+                        lat.append((ms, inflight or srv._merge_inflight))
+            except Exception as exc:  # reported below, after the join
+                errors.append(repr(exc))
+
+        def writer():
+            """The writes at MUT_WRITE_RATE a second, each insert read back
+            at once."""
+            try:
+                for j, w in enumerate(writes):
+                    time.sleep(max(t0 + j / MUT_WRITE_RATE - time.perf_counter(), 0.0))
+                    ack = srv.submit(w).result(timeout=60)
+                    if not (isinstance(ack, WriteAck) and ack.applied):
+                        errors.append(f"write {w.id} answered {ack}")
+                    if isinstance(w, Upsert):
+                        ryw.append((w.id, srv.submit(Request("ryw", Query(
+                            w.vector, [MATCH(int(v)) for v in w.attrs]),
+                            request_id=w.request_id + 1)).result(timeout=600)))
+            except Exception as exc:
+                errors.append(repr(exc))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+        threads.append(threading.Thread(target=writer))
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        if any(t.is_alive() for t in threads) or errors:
+            raise SystemExit(f"mutable ThreadedServer: a client did not finish: {errors[:4]}")
+        wall_s = time.perf_counter() - t0
+        text = urllib.request.urlopen(srv.metrics_server.url + "/metrics", timeout=30).read()
+    if not all(isinstance(r, Completed) for r in answers):
+        raise SystemExit(f"mutable ThreadedServer: a read is not Completed: "
+                         f"{sorted({repr(r)[:120] for r in answers if not isinstance(r, Completed)})}")
+    missed = [i for i, r in ryw if not (isinstance(r, Completed) and int(r.ids[0]) == i)]
+    if missed:
+        raise SystemExit(f"mutable ThreadedServer: read-your-writes failed for ids {missed[:8]}")
+    merges = m.merge_count - merges0
+    if merges == 0:
+        raise SystemExit("mutable ThreadedServer: no background merge fired")
+    prom = {}
+    for line in text.decode().splitlines():
+        if line.startswith(("serve_merge_ms_count", "serve_merge_ms_sum")):
+            name, value = line.rsplit(" ", 1)
+            prom[name] = float(value)
+    snap = srv.stats.snapshot()
+    if prom.get("serve_merge_ms_count") != merges or snap["writes"]["merges"] != merges:
+        raise SystemExit(f"mutable: /metrics serve_merge_ms_count {prom.get('serve_merge_ms_count')}"
+                         f", snapshot {snap['writes']['merges']}, merges {merges}")
+    split_lat = {}
+    for flag in (False, True):
+        v = [ms for ms, f in lat if f == flag]
+        split_lat["during_merge" if flag else "no_merge"] = dict(
+            reads=len(v), p50_ms=float(np.percentile(v, 50)) if v else None,
+            p99_ms=float(np.percentile(v, 99)) if v else None)
+    out["threaded"] = dict(reads=len(answers), writes=len(writes), wall_s=wall_s,
+                           merges=merges, merge_ms=list(m.merge_ms[-merges:]),
+                           read_latency=split_lat, ryw_checked=len(ryw),
+                           serve_merge_ms_prometheus=prom)
+    log(f"  ThreadedServer with writes: {len(answers)} reads from {SERVE_CLIENTS} closed-loop "
+        f"clients and {len(writes)} writes at {MUT_WRITE_RATE:.0f}/s in {wall_s:.3f} s; {merges} "
+        f"background merges ({', '.join(f'{x:.1f}' for x in m.merge_ms[-merges:])} ms prepare "
+        f"+ apply); read latency, submit to answer: {split_lat}; read-your-writes held on "
+        f"{len(ryw)} acknowledged inserts; /metrics {prom}")
+    return out, m
+
+
+def check_mutable_kernels(dev, ds, m, alpha: float, seed: int) -> dict:
+    """fused_auto at the delta scan (B = 128 against MUT_SCAN_ROWS rows,
+    l2 and auto) and gather_auto at link_nodes's hop scoring (B = D = 3,584
+    linked rows against 4,096 candidates, 10% INVALID as a pool pads,
+    auto), on the merged index's rows: each against its plain version,
+    timed (one call between CUDA events, and a CUDA-graph replay) beside
+    its bound; fused_auto also beside torch.cdist."""
+    from repro_torch.core import to_tensor
+    from repro_torch.kernels.fused_auto.ops import fused_auto, fused_auto_ref
+    from repro_torch.kernels.gather_auto.ops import gather_auto, gather_auto_ref
+    from repro_torch.kernels.gather_auto.ref import penalty_sa
+
+    rng = np.random.default_rng(seed)
+    idx = m.index
+    n, mdim = (int(x) for x in idx.features.shape)
+    l = int(idx.attrs.shape[1])
+    q = predicate_batches(ds)["MATCH"]
+    qv = to_tensor(q.vectors, torch.float32, dev)
+    qa = to_tensor(q.attrs, torch.int32, dev)
+    b = qv.shape[0]
+    rows_v = idx.features[n - MUT_SCAN_ROWS:].contiguous()
+    rows_a = idx.attrs[n - MUT_SCAN_ROWS:].contiguous()
+    report = {}
+    qsq = (qv.double() ** 2).sum(1)[:, None]
+    xsq = (rows_v.double() ** 2).sum(1)[None, :]
+    worst, max_err = 0.0, 0.0
+    for mode in ("l2", "auto"):
+        got = fused_auto(qv, qa, rows_v, rows_a, alpha, mode)
+        want = fused_auto_ref(qv, qa, rows_v, rows_a, alpha, mode)
+        pen2 = 1.0
+        if mode == "auto":
+            pen2 = (1.0 + penalty_sa(qa, rows_a[None].expand(b, -1, -1), None).double()
+                    / alpha) ** 2
+        tol = (FUSED_RTOL_NORMS * (qsq + xsq) + FUSED_ATOL) * pen2 + 1e-6 * want.double().abs()
+        err = (got.double() - want.double()).abs()
+        worst = max(worst, float((err / tol).max()))
+        max_err = max(max_err, float(err.max()))
+    bytes_ = (b * mdim + MUT_SCAN_ROWS * (mdim + l) + b * l * 2) * 4 + b * MUT_SCAN_ROWS * 4
+    ops = 2 * b * MUT_SCAN_ROWS * mdim + 2 * (b + MUT_SCAN_ROWS) * mdim + 4 * b * MUT_SCAN_ROWS
+    bound_ms, bound_by = bound(bytes_, ops)
+    report["fused_auto"] = dict(
+        shape=f"delta scan B={b} C={MUT_SCAN_ROWS} M={mdim} L={l} l2", max_abs_err=max_err,
+        worst_err_over_tol=worst,
+        ms=cuda_ms(lambda: fused_auto(qv, qa, rows_v, rows_a, alpha, "l2")),
+        device_ms=device_ms(lambda: fused_auto(qv, qa, rows_v, rows_a, alpha, "l2")),
+        auto_device_ms=device_ms(lambda: fused_auto(qv, qa, rows_v, rows_a, alpha, "auto")),
+        plain_ms=cuda_ms(lambda: fused_auto_ref(qv, qa, rows_v, rows_a, alpha, "l2")),
+        library_ms=cuda_ms(lambda: torch.cdist(qv, rows_v)),
+        bound_ms=bound_ms, bound_by=bound_by,
+    )
+    del got, want, err, tol, pen2
+
+    d, c = MUT_HOP_SHAPE
+    node = torch.from_numpy(rng.choice(n, d, replace=False)).to(dev)
+    hv, ha = idx.features[node].contiguous(), idx.attrs[node].contiguous()
+    cand_np = rng.integers(0, n, (d, c)).astype(np.int32)
+    cand_np[rng.random((d, c)) < 0.1] = -1
+    cand = to_tensor(cand_np, torch.int32, dev)
+    got = gather_auto(hv, ha, idx.features, idx.attrs, cand, alpha, "auto")
+    want = gather_auto_ref(hv, ha, idx.features, idx.attrs, cand, alpha, "auto")
+    err = (got.double() - want.double()).abs()
+    ratio = float((err / (GATHER_RTOL * want.double().abs() + 1e-6)).max())
+    del want
+    valid = cand[cand >= 0]
+    rows_read, pairs = int(torch.unique(valid).numel()), int(valid.numel())
+    bound_ms, bound_by = bound(rows_read * (mdim + l) * 4 + d * c * 4 * 2 + d * (mdim + 2 * l) * 4,
+                               pairs * (3 * mdim + 4 * l + 4))
+    # as context: each pair's row read from device memory (the rows do not
+    # fit in L2, and random candidates share few)
+    every_pair_ms, _ = bound(pairs * (mdim + l) * 4 + d * c * 4 * 2 + d * (mdim + 2 * l) * 4, 0)
+    report["gather_auto"] = dict(
+        shape=f"link hop B={d} C={c} M={mdim} L={l} auto", max_abs_err=float(err.max()),
+        worst_err_over_tol=ratio, rows=rows_read, pairs=pairs,
+        every_pair_from_memory_ms=every_pair_ms,
+        ms=cuda_ms(lambda: gather_auto(hv, ha, idx.features, idx.attrs, cand, alpha, "auto")),
+        device_ms=device_ms(lambda: gather_auto(hv, ha, idx.features, idx.attrs, cand, alpha,
+                                                "auto")),
+        plain_ms=cuda_ms(lambda: gather_auto_ref(hv, ha, idx.features, idx.attrs, cand, alpha,
+                                                 "auto"), reps=3),
+        library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+    )
+    del got, err, cand
+    torch.cuda.empty_cache()
+    for name, r in report.items():
+        log(f"  mutable {name} {r['shape']}: kernel {r['ms']:.4f} ms (device "
+            f"{r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); max|err| {r['max_abs_err']:.3e}, "
+            f"worst err/tol {r['worst_err_over_tol']:.3f}")
+    if worst > 1.0 or ratio > 1.0:
+        raise SystemExit(f"mutable kernels: disagree with their plain versions (fused_auto "
+                         f"err/tol {worst:.3f}, gather_auto {ratio:.3f})")
+    return report
+
+
+def mutable_freshness(dev, seed: int) -> dict:
+    """The reference's freshness script at N = 20,000 on ``dev``: build,
+    then 1,500 inserts and 750 deletes served, graph MATCH reads (pool
+    128, pioneer 16) before the merge; one more insert trips the size
+    trigger, the merge runs inside serve_loop, the reads again. Recall@10
+    against the logical corpus's brute oracle (a deleted row's attributes
+    set to -1 match no MATCH query)."""
+    from repro_torch.api import MATCH, Engine, Query, SearchParams
+    from repro_torch.core import to_tensor
+    from repro_torch.core.baselines import brute_force_hybrid, recall_at_k
+    from repro_torch.core.help_graph import HelpConfig
+    from repro_torch.data.synthetic import make_hybrid_dataset
+    from repro_torch.mutable import CompactionPolicy, MutableEngine
+    from repro_torch.serve import Delete, Request, TenantPolicy, TenantRegistry, Upsert, serve_loop
+
+    total = SMALL_N + MUT_SMALL_INSERTS
+    ds = make_hybrid_dataset(n=total, n_queries=128, profile="sift", seed=seed)
+    eng = Engine.build(ds.features[:SMALL_N], ds.attrs[:SMALL_N],
+                       HelpConfig(gamma=24, gamma_new=6, max_rounds=8), device=dev)
+    m = MutableEngine(eng, CompactionPolicy(max_delta_rows=10 ** 9))
+    reg = TenantRegistry(default_policy=TenantPolicy(
+        params=SearchParams(k=10, pool_size=128, pioneer_size=16, backend="graph")))
+    deleted = np.sort(np.random.default_rng(7).choice(SMALL_N, MUT_SMALL_DELETES, replace=False))
+    writes = [Upsert("t", ds.features[i], ds.attrs[i], id=i) for i in range(SMALL_N, total)]
+    writes += [Delete("t", int(i)) for i in deleted]
+    reads = [Request("t", Query(ds.query_features[i], [MATCH(int(v)) for v in ds.query_attrs[i]]),
+                     request_id=10_000 + i) for i in range(len(ds.query_features))]
+    attrs = ds.attrs.copy()
+    attrs[deleted] = -1
+    truth = brute_force_hybrid(to_tensor(ds.features, torch.float32, dev),
+                               to_tensor(attrs, torch.int32, dev),
+                               ds.query_features, ds.query_attrs, 10).ids.cpu()
+
+    def recall_of(resp):
+        done = sorted((r for r in resp if hasattr(r, "ids")), key=lambda r: r.request_id)
+        if len(done) != len(reads) or not all(r.ok for r in resp):
+            raise SystemExit(f"mutable freshness on {dev}: not every request answered")
+        ids = np.stack([r.ids for r in done])
+        if np.isin(ids, deleted).any():
+            raise SystemExit(f"mutable freshness on {dev}: a deleted id was served")
+        return recall_at_k(ids, truth, 10)
+
+    out, _ = serve_loop(m, [(0.0, w) for w in writes] + [(1.0, r) for r in reads], reg)
+    pre = recall_of(out)
+    m.policy = CompactionPolicy(max_delta_rows=10)
+    poke = Upsert("t", ds.features[total - 1], ds.attrs[total - 1], id=total - 1)
+    out, _ = serve_loop(m, [(0.0, poke)] + [(1.0, r) for r in reads], reg)
+    post = recall_of(out)
+    if m.merge_count != 1:
+        raise SystemExit(f"mutable freshness on {dev}: {m.merge_count} merges, not 1")
+    return {"pre_merge": pre, "post_merge": post, "merge_ms": m.merge_ms[-1]}
+
+
+def check_mutable_small(dev, seed: int) -> dict:
+    """The freshness script at N = 20,000 on the card and on the CPU: graph
+    MATCH recall@10 ≥ MUT_RECALL_FLOOR before and after the merge on the
+    card, within SMALL_RECALL_GAP of the CPU's."""
+    t0 = time.perf_counter()
+    card = mutable_freshness(dev, seed)
+    t1 = time.perf_counter()
+    cpu = mutable_freshness(torch.device("cpu"), seed)
+    log(f"  N={SMALL_N} freshness ({MUT_SMALL_INSERTS} inserts, {MUT_SMALL_DELETES} deletes, "
+        f"graph MATCH): recall@10 card {card['pre_merge']:.4f} before / {card['post_merge']:.4f} "
+        f"after the merge ({card['merge_ms']:.1f} ms), CPU {cpu['pre_merge']:.4f} / "
+        f"{cpu['post_merge']:.4f} (card {t1 - t0:.1f} s, CPU {time.perf_counter() - t1:.1f} s)")
+    for key in ("pre_merge", "post_merge"):
+        if card[key] < MUT_RECALL_FLOOR:
+            raise SystemExit(f"mutable freshness: card recall {card[key]:.4f} {key} < "
+                             f"{MUT_RECALL_FLOOR}")
+        if abs(card[key] - cpu[key]) > SMALL_RECALL_GAP:
+            raise SystemExit(f"mutable freshness: card {card[key]:.4f} vs CPU {cpu[key]:.4f} "
+                             f"{key}: gap > {SMALL_RECALL_GAP}")
+    return {"card": card, "cpu": cpu}
+
+
 def bound(bytes_: float, ops: float) -> tuple[float, str]:
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     operations over the FP32 rate."""
@@ -1860,9 +2471,32 @@ def main(argv=None) -> int:
         profiles["partitioned/brute"] = profile_call(
             f"partitioned nprobe={part_params.nprobe} brute",
             lambda: peng.search(part_q, part_params))
+        # the mutable step takes the exact index over; nothing else keeps it
+        mutable_base = [(eng.index, eng._cost_model)]
         del eng, pq_eng, serve_flush, peng
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[4] mutable: writes, the federated read, merge, WAL, checkpoint, serving with writes")
+    workdir = tempfile.mkdtemp(prefix="mutable_", dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.perf_counter()
+        (mut_out, meng), mut_launches = drive(
+            run_mutable_path, ("gather_auto", "fused_auto"), dev, ds, mutable_base, args.seed,
+            workdir)
+        mut_out["step_s"] = time.perf_counter() - t0
+        kern["mutable"] = check_mutable_kernels(dev, ds, meng, alpha, args.seed)
+        meng.wal.close()
+        del meng
+        t0 = time.perf_counter()
+        mut_out["freshness"] = check_mutable_small(dev, args.seed)
+        mut_out["freshness_s"] = time.perf_counter() - t0
+        log(f"  mutable step: {mut_out['step_s']:.2f} s, N={SMALL_N} freshness "
+            f"{mut_out['freshness_s']:.2f} s")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    gc.collect()
     torch.cuda.empty_cache()
 
     # ---- phase 5: the recsys path at the full fm width
@@ -1883,7 +2517,7 @@ def main(argv=None) -> int:
     (recsys_out, calls), recsys_launches = drive(
         run_recsys_path, ("fm_interaction", "fused_auto"), dev, fm_cfg, fm_params, args.seed)
     launches = {k: exact_launches[k] + serve_launches[k] + quant_launches[k] + part_launches[k]
-                + recsys_launches[k] for k in wrappers}
+                + mut_launches[k] + recsys_launches[k] for k in wrappers}
     profiles.update({f"recsys/{label}": profile_call(label, fn) for label, fn in calls.items()})
     del fm_params, calls
     torch.cuda.empty_cache()
@@ -1925,17 +2559,21 @@ def main(argv=None) -> int:
                                        "descent_block", "narrow_block", "wide")
                 if k in kern[name]},
          **({"partition_probe": kern["partition_probe"][name]}
-            if name in kern["partition_probe"] else {})}
+            if name in kern["partition_probe"] else {}),
+         **({{"fused_auto": "delta_scan", "gather_auto": "link_hop"}[name]:
+             kern["mutable"][name]} if name in kern["mutable"] else {})}
         for name, (src, rep) in sources.items()
     ]}
     log("[6] summary " + json.dumps({"n": args.n, "main_path": main_out, "serve": serve_out,
                                      "quantized": quant_out, "partitioned": part_out,
+                                     "mutable": mut_out,
                                      "recsys": recsys_out, "recsys_cut_vocab": recsys_small,
                                      "profiles": profiles, "small_input": small,
                                      "launches": {"exact": exact_launches,
                                                   "serve": serve_launches,
                                                   "quantized": quant_launches,
                                                   "partitioned": part_launches,
+                                                  "mutable": mut_launches,
                                                   "recsys": recsys_launches},
                                      "gather_descent_block": kern["gather_auto"]["descent_block"],
                                      "gather_narrow_block": kern["gather_auto"]["narrow_block"],

@@ -190,7 +190,7 @@ class BruteForceSearcher:
             qv, qa, idx.features, idx.attrs, MetricConfig(mode="l2")
         )
         return _filtered_topk(
-            sv2, _ok_matrix(engine, queries), params.k, full_evals=idx.features.shape[0]
+            sv2, admissible_matrix(queries, idx.attrs), params.k, full_evals=idx.features.shape[0]
         )
 
     def _adc_two_stage(self, engine, queries, qv, qa, params):
@@ -205,7 +205,7 @@ class BruteForceSearcher:
         n = scores.shape[1]
         pool = min(params.effective_pool, n)
         pool = min(max(params.rerank_size or pool, params.k), pool)
-        code_sq, cand = smallest_k(scores.masked_fill(~_ok_matrix(engine, queries), INF), pool)
+        code_sq, cand = smallest_k(scores.masked_fill(~admissible_matrix(queries, idx.attrs), INF), pool)
         cand = cand.to(torch.int32)
         rd = gather_auto(qv, qa, idx.features, idx.attrs, cand, mode="l2")
         rd = rd.masked_fill(code_sq >= INF / 2, INF)
@@ -215,17 +215,24 @@ class BruteForceSearcher:
             (qv.shape[0],), n, dtype=torch.int32, device=qv.device))
 
 
-def _ok_matrix(engine: "Engine", queries: QueryBatch) -> Tensor:
-    """(B, N) admissibility on the device: equality for point batches,
-    containment in [lo, hi] (equality on point dimensions) and exact ONE_OF
-    set membership otherwise, the semantics of ``QueryBatch.admissible``."""
-    dev = engine.device
-    mask = _mask(engine, queries)
+def admissible_matrix(queries: QueryBatch, attrs: Tensor, one_of_only: bool = False) -> Tensor:
+    """(B, N) admissibility of the rows ``attrs`` (N, L) on their device:
+    equality for point batches, containment in [lo, hi] (equality on point
+    dimensions) and exact ONE_OF set membership otherwise, the semantics of
+    ``QueryBatch.admissible``. ``one_of_only`` constrains just the ONE_OF
+    dimensions, as ``QueryBatch.admissible_rows(..., one_of_only=True)``."""
+    dev = attrs.device
+    if one_of_only:
+        if not queries.has_one_of:
+            return torch.ones((queries.batch_size, attrs.shape[0]), dtype=torch.bool, device=dev)
+        allowed = to_tensor(queries.allowed, torch.int32, dev)
+        hard = to_tensor(queries.hard, torch.bool, dev)
+        member = (attrs[None, :, :, None] == allowed[:, None, :, :]).any(-1)
+        return (member | ~hard[:, None, :]).all(-1)
+    mask = None if queries.mask is None else to_tensor(queries.mask, torch.int32, dev)
     if not (queries.has_one_of or queries.has_intervals):
-        return baselines_mod._equality_ok(
-            to_tensor(queries.attrs, torch.int32, dev), engine.index.attrs, mask
-        )
-    xa = engine.index.attrs[None, :, :]
+        return baselines_mod._equality_ok(to_tensor(queries.attrs, torch.int32, dev), attrs, mask)
+    xa = attrs[None, :, :]
     lo, hi = (to_tensor(t, torch.int32, dev)[:, None, :] for t in queries._bounds())
     okl = (xa >= lo) & (xa <= hi)
     if queries.has_one_of:
@@ -272,6 +279,12 @@ class Engine:
 
     ``cost_model`` may be injected at construction; otherwise it is
     calibrated lazily from one probe the first time an auto-plan needs it."""
+
+    #: index-content version for the result cache: an immutable engine stays
+    #: at 0; ``repro_torch.mutable.MutableEngine`` shadows it with a counter
+    #: bumped inside its write lock before each write's ack. A class
+    #: attribute, not a field, so equality and repr are untouched.
+    write_epoch = 0
 
     index: Union[StableIndex, PartitionedStableIndex]
     cost_model_override: Optional[CostModel] = dataclasses.field(
@@ -328,6 +341,16 @@ class Engine:
         if name not in _SEARCHERS:
             raise NotImplementedError(f"the {name!r} backend is not ported yet")
         return _SEARCHERS[name]
+
+    def invalidate_caches(self) -> None:
+        """Drop what was derived from ``self.index`` after a merge swapped
+        it (``repro_torch.mutable``): the host attribute copy and every
+        compiled executable (their closures hold entry pools sized for the
+        old N). The cost model stays: it extrapolates across corpus growth,
+        so a merge does not probe again."""
+        self._attrs_np = None
+        if self._executor is not None:
+            self._executor.clear()
 
     # -- construction --------------------------------------------------------
 

@@ -79,6 +79,14 @@ class Executor:
             "max_entries": self.max_entries,
         }
 
+    def clear(self) -> None:
+        """Drop every resident executable (the engine's index was swapped by
+        a ``repro_torch.mutable`` merge, so the closures' entry pools are
+        sized for the old N). The counters stay: ``ServerStats`` reports
+        their growth since its construction, which must stay monotone across
+        merges."""
+        self._cache.clear()
+
     def signature(
         self, queries: QueryBatch, params: "SearchParams", plan: "Plan"
     ) -> PlanSignature:

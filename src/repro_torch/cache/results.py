@@ -11,10 +11,9 @@ fixed index state.
 "Fixed index state" is enforced with an **engine write epoch**: every
 entry records ``engine.write_epoch`` captured when its request was
 admitted (before execution), and a lookup only hits when the entry's epoch
-equals the engine's current epoch (an engine without ``write_epoch``, as
-every engine of this package is until the mutable engine is ported, stays
-at epoch 0). A mutable engine bumps the epoch inside the write lock
-*before* the write's ack resolves, so:
+equals the engine's current epoch (an immutable ``Engine`` stays at epoch
+0). ``MutableEngine`` bumps the epoch inside the write lock *before* the
+write's ack resolves, so:
 
 * a cached entry can never serve a result computed before a write that has
   been acknowledged (read-your-writes holds through the cache);

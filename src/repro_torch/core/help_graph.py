@@ -13,6 +13,9 @@ scan is a loop over neighbour slots. The in-degree guard (protect nodes
 whose in-degree is 1) and a post-prune orphan repair keep the graph
 navigable. Blocks stay on the device; only the orphan repair runs on the
 host, vectorised with numpy.
+
+``link_nodes`` links new or rewritten rows into an existing adjacency
+without a rebuild: the merge path of ``repro_torch.mutable``.
 """
 from __future__ import annotations
 
@@ -25,8 +28,10 @@ import torch
 from repro_torch.core import auto as auto_mod
 from repro_torch.core import graph_ops as gops
 from repro_torch.core import routing as routing_mod
+from repro_torch.core import sync_span
 from repro_torch.core.auto import MetricConfig
 from repro_torch.core.graph_ops import INF, INVALID
+from repro_torch.obs import trace as obs_trace
 
 Tensor = torch.Tensor
 
@@ -316,6 +321,125 @@ def _reverse_insert(
             nbr_ids[s:e], nbr_d[s:e], rev[s:e], cd, gamma
         )
     return out_i, out_d
+
+
+# ---------------------------------------------------------------------------
+# Incremental link and repair (streaming mutability: no full rebuild)
+# ---------------------------------------------------------------------------
+
+
+def _offers(new_rows: np.ndarray, node_ids: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Reverse edges to offer: every existing row ``u`` named in a linked
+    node's new row is offered that node. Returns ``u_ids`` in the order a
+    row-major scan first meets them and ``off`` (U, width), each row's
+    offered nodes in scan order, INVALID-padded: the reference's dict of
+    lists, built without a Python loop."""
+    gamma = new_rows.shape[1]
+    u = new_rows.reshape(-1)
+    v = np.repeat(node_ids, gamma)
+    keep = (u >= 0) & ~np.isin(u, node_ids)
+    u, v = u[keep], v[keep]
+    if u.size == 0:
+        return np.zeros(0, np.int32), np.zeros((0, 0), np.int32)
+    uniq, first, inv, counts = np.unique(u, return_index=True, return_inverse=True,
+                                         return_counts=True)
+    by_first = np.argsort(first, kind="stable")  # group order: first sighting
+    row_of = np.empty_like(by_first)
+    row_of[by_first] = np.arange(by_first.size)
+    row = row_of[inv]
+    order = np.argsort(row, kind="stable")  # pairs grouped by row, scan order kept
+    start = np.concatenate([[0], np.cumsum(counts[by_first])[:-1]])
+    col = np.empty_like(order)
+    col[order] = np.arange(order.size) - start[row[order]]
+    off = np.full((by_first.size, int(counts.max())), INVALID, np.int32)
+    off[row, col] = v
+    return uniq[by_first].astype(np.int32), off
+
+
+def link_nodes(
+    features: Tensor,
+    attrs: Tensor,
+    graph: Tensor,
+    node_ids,  # (D,) rows to (re-)link into the adjacency
+    metric_cfg: MetricConfig,
+    cfg: HelpConfig,
+    banned_ids=None,  # dead rows: never linked to
+    seed: int = 0,
+) -> tuple[Tensor, int]:
+    """Link ``node_ids`` into an existing HELP adjacency without a rebuild
+    (the merge path of ``repro_torch.mutable``), on the device of
+    ``features``. Returns (new adjacency, number of repaired existing rows);
+    ``graph`` itself is not written.
+
+    For each node: (1) a routed search over the current graph under the
+    AUTO metric, the node's own attributes as targets; (1b) the one-hop
+    expansion of that pool, scored with ``gather_auto``; (2) all pairs of
+    the linked set through ``fused_auto``, since the frozen graph has no
+    edges into it yet; (3) its row becomes the Γ best candidates; (4)
+    mutual-neighbour repair offers each new edge's reverse to its target, so
+    that new rows are reachable. Rows in ``banned_ids`` are never linked to.
+    """
+    node_ids = np.asarray(node_ids, np.int64)
+    n, gamma = int(features.shape[0]), int(graph.shape[1])
+    d = int(node_ids.shape[0])
+    if d == 0 or gamma == 0:
+        return graph, 0
+    dev = features.device
+    banned = np.zeros(0, np.int64) if banned_ids is None else np.unique(
+        np.asarray(banned_ids, np.int64))
+    node_dev = torch.from_numpy(node_ids.astype(np.int32)).to(dev)
+    qv, qa = features[node_dev.long()], attrs[node_dev.long()]
+
+    # (1) routed candidate search, the reference's operating point
+    with obs_trace.span("link_route") as sp:
+        pool = int(min(max(4 * gamma, 64), n))
+        rcfg = routing_mod.RoutingConfig(
+            k=pool, pool_size=pool, pioneer_size=min(8, pool),
+            coarse_max_iters=16, refine_max_iters=64,
+        )
+        res = routing_mod.search(features, attrs, graph, qv, qa, metric_cfg, rcfg, seed=seed)
+        cand_ids, cand_d = res.ids, res.sqdists  # (D, pool)
+        sync_span(sp, cand_d)
+
+    with obs_trace.span("link_hop") as sp:
+        # (1b) one-hop expansion: the candidates' own neighbours
+        hop_ids = gops.gather_rows(graph, cand_ids).reshape(d, -1)  # (D, pool·Γ)
+        hop_ids = hop_ids.masked_fill((cand_ids < 0).repeat_interleave(gamma, dim=1), INVALID)
+        hop_d = _score_candidates(features, attrs, node_dev, hop_ids, metric_cfg)
+        # (2) new↔new candidates
+        d_nn = auto_mod.brute_fused_sqdist(qv, qa, qv, qa, metric_cfg)  # (D, D)
+        nn_ids = node_dev[None, :].expand(d, d)
+        all_ids = torch.cat([cand_ids, hop_ids, nn_ids], dim=1)
+        all_d = torch.cat([cand_d, hop_d, d_nn], dim=1)
+        bad = (all_ids == node_dev[:, None]) | (all_ids < 0)
+        if banned.size:
+            bad |= torch.isin(all_ids, torch.from_numpy(banned.astype(np.int32)).to(dev))
+        all_d = all_d.masked_fill(bad, INF)
+        all_ids = all_ids.masked_fill(bad, INVALID)
+        # (3) each linked node's row: the Γ best candidates, deduped, ascending
+        new_rows, _, _ = gops.merge_pools(
+            torch.full((d, gamma), INVALID, dtype=torch.int32, device=dev),
+            torch.full((d, gamma), INF, dtype=torch.float32, device=dev),
+            all_ids, all_d, gamma,
+        )
+        out = graph.clone()
+        out[node_dev.long()] = new_rows
+        new_rows_np = new_rows.cpu().numpy()
+
+    # (4) mutual-neighbour repair: existing rows carry no stored distances,
+    # so each is rescored once and merged with the reverse edges offered
+    with obs_trace.span("link_repair") as sp:
+        u_ids, off = _offers(new_rows_np, node_ids)
+        if u_ids.size == 0:
+            return out, 0
+        u_dev = torch.from_numpy(u_ids).to(dev)
+        off_dev = torch.from_numpy(off).to(dev)
+        cur = out[u_dev.long()]
+        cur_d = _score_candidates(features, attrs, u_dev, cur, metric_cfg)
+        off_d = _score_candidates(features, attrs, u_dev, off_dev, metric_cfg)
+        out[u_dev.long()] = gops.merge_pools(cur, cur_d, off_dev, off_d, gamma)[0]
+        sync_span(sp, out)
+    return out, int(u_ids.size)
 
 
 # ---------------------------------------------------------------------------

@@ -114,6 +114,43 @@ class StableIndex:
             mask=mask, seed=seed, quant=self.quant,
         )
 
+    # -- streaming mutability (repro_torch.mutable) ---------------------------
+
+    def apply_rows(self, ids, features, attrs) -> "StableIndex":
+        """Scatter and append logical rows into a new index whose tensors
+        are all new: the old index keeps serving readers that may be
+        mid-search on it, so none of its tensors is written.
+
+        Rows with ``id < N`` are overwritten; ids beyond N grow the corpus
+        to ``max(id) + 1`` (gap rows get zero vectors; the caller tombstones
+        them). Graph rows are not linked here: appended rows are all
+        INVALID until ``help_graph.link_nodes`` links them, and overwritten
+        rows keep their old out-edges. Codes are extended with the frozen
+        codec state (``QuantizedVectors.encode_rows``)."""
+        ids = np.asarray(ids, np.int64)
+        if ids.size == 0:
+            return self
+        dev = self.device
+        n_old = int(self.features.shape[0])
+        n_new = max(n_old, int(ids.max()) + 1)
+        idx = torch.from_numpy(ids).to(dev)
+
+        def grown(a: Tensor, rows: Tensor, fill=0) -> Tensor:
+            pad = a.new_full((n_new - n_old,) + tuple(a.shape[1:]), fill)
+            return torch.cat([a, pad]).index_copy_(0, idx, rows.to(a.dtype))
+
+        feats_new = to_tensor(features, torch.float32, dev)
+        quant = self.quant
+        if quant is not None:
+            codes = grown(quant.codes, quant.encode_rows(feats_new))
+            quant = dataclasses.replace(quant, codes=codes)
+        graph = torch.cat([self.graph, self.graph.new_full((n_new - n_old, self.graph.shape[1]),
+                                                           help_mod.INVALID)])
+        return dataclasses.replace(
+            self, features=grown(self.features, feats_new),
+            attrs=grown(self.attrs, to_tensor(attrs, torch.int32, dev)), graph=graph, quant=quant,
+        )
+
     # -- persistence ----------------------------------------------------------
 
     def save(self, path: str, extra_meta: Optional[dict] = None) -> None:

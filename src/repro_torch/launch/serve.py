@@ -15,11 +15,17 @@ QPS), not ad-hoc stopwatches.
 The engine runs on the CUDA card unless ``--device cpu`` asks for the
 kernels' plain PyTorch versions; without a card the default raises.
 
-Four of the reference's options need modules that are not ported yet: set
-to anything but their default, each exits with an error before anything is
-built. ``--writes``, ``--write-rate`` and ``--max-delta-rows`` wait for the
-mutable engine (ROADMAP queue 1, item 8) and ``--hot-rows`` for hot/cold
-tiering (item 9).
+With ``--writes`` the launcher serves a *mutable* engine: the last W rows
+are held out of the build and streamed back as ``Upsert`` requests (plus
+W//4 ``Delete``\\ s) interleaved with the queries, so the run exercises the
+LSM write path — delta scans federated into every query, per-tenant write
+admission (``--write-rate``), and background merges that never block
+serving (``--max-delta-rows``) — and reports the write, merge and delta
+metrics beside the read-side ones.
+
+``--hot-rows`` needs hot/cold tiering, which is not ported yet (ROADMAP
+queue 1, item 9): set to anything but 0 it exits with an error before
+anything is built.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --n 4000 --requests 128
@@ -29,6 +35,8 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --index-dir DIR --rate 200
   PYTHONPATH=src python -m repro_torch.launch.serve --index-dir PART_DIR \
       --residency-rows 65536
+  PYTHONPATH=src python -m repro_torch.launch.serve --n 20000 --writes 2000 \\
+      --write-rate 500 --max-delta-rows 1024
   PYTHONPATH=src python -m repro_torch.launch.serve --n 20000 \\
       --metrics-port 9100 --trace-sample 16 --trace-out trace.json
 """
@@ -43,9 +51,6 @@ import torch
 
 #: reference options whose modules are not ported yet: flag → ROADMAP item
 UNPORTED = {
-    "writes": "the mutable engine (ROADMAP queue 1, item 8)",
-    "write_rate": "the mutable engine (ROADMAP queue 1, item 8)",
-    "max_delta_rows": "the mutable engine (ROADMAP queue 1, item 8)",
     "hot_rows": "hot/cold tiering (ROADMAP queue 1, item 9)",
 }
 
@@ -57,10 +62,12 @@ def main(argv=None) -> None:
     from repro_torch.core.baselines import brute_force_hybrid, recall_at_k
     from repro_torch.core.help_graph import HelpConfig
     from repro_torch.data.synthetic import make_hybrid_dataset
+    from repro_torch.mutable import CompactionPolicy, MutableEngine
     from repro_torch.obs import Tracer, dump_chrome_trace
     from repro_torch.quant import QUANT_MODES, QuantConfig
     from repro_torch.serve import (
-        Request, TenantPolicy, TenantRegistry, ThreadedServer, serve_loop,
+        Delete, Request, TenantPolicy, TenantRegistry, ThreadedServer,
+        Upsert, serve_loop,
     )
 
     ap = argparse.ArgumentParser()
@@ -93,19 +100,17 @@ def main(argv=None) -> None:
                     help="pool entries reranked exactly (0 = whole pool)")
     ap.add_argument("--pq-subspaces", type=int, default=32)
     ap.add_argument("--writes", type=int, default=0,
-                    help="stream W held-out rows back as Upserts; not "
-                         "ported yet (ROADMAP item 8): > 0 exits with an error")
+                    help="hold the last W rows out of the build and stream "
+                         "them back as Upserts (plus W//4 Deletes) "
+                         "interleaved with the queries")
     ap.add_argument("--write-rate", type=float, default=0.0,
-                    help="per-tenant admitted writes/second; not ported "
-                         "yet (ROADMAP item 8): any value but 0 exits with "
-                         "an error")
+                    help="per-tenant admitted writes/second; 0 = unlimited")
     ap.add_argument("--residency-rows", type=int, default=0,
                     help="partitioned --index-dir only: cap on device-"
                          "resident rows (0 = everything may stay resident)")
     ap.add_argument("--max-delta-rows", type=int, default=1024,
-                    help="compaction trigger of the write path; not ported "
-                         "yet (ROADMAP item 8): any value but 1024 exits "
-                         "with an error")
+                    help="compaction trigger: merge when the delta holds "
+                         "this many rows")
     ap.add_argument("--hot-rows", type=int, default=0,
                     help="hot/cold tiering budget; not ported yet (ROADMAP "
                          "item 9): > 0 exits with an error")
@@ -134,6 +139,7 @@ def main(argv=None) -> None:
                      "which is not ported yet")
     dev = resolve_device(args.device)
     buckets = tuple(int(b) for b in args.buckets.split(","))
+    n_writes = max(0, min(args.writes, args.n // 2))
 
     ds = make_hybrid_dataset(
         n=args.n, n_queries=args.requests, profile=args.profile,
@@ -141,16 +147,22 @@ def main(argv=None) -> None:
         attr_cluster_corr=0.6, seed=0,
     )
     if args.index_dir:
+        if n_writes:
+            print("--writes needs a fresh build (holdout rows); ignoring")
+            n_writes = 0
         print(f"loading engine from {args.index_dir} onto {dev} "
               "(one engine reused for the whole stream)")
         eng = Engine.load(args.index_dir, device=dev,
                           residency_rows=args.residency_rows or None)
     else:
-        print(f"building index over {args.n} nodes on {dev} "
-              f"({args.profile} profile, quant={args.quant})")
+        n_build = args.n - n_writes
+        print(f"building index over {n_build} nodes on {dev} "
+              f"({args.profile} profile, quant={args.quant}"
+              + (f", {n_writes} rows held out for the write stream)"
+                 if n_writes else ")"))
         t0 = time.perf_counter()
         eng = Engine.build(
-            ds.features, ds.attrs,
+            ds.features[:n_build], ds.attrs[:n_build],
             HelpConfig(gamma=24, gamma_new=6, max_rounds=8),
             quant_cfg=QuantConfig(mode=args.quant,
                                   pq_subspaces=args.pq_subspaces),
@@ -176,29 +188,61 @@ def main(argv=None) -> None:
         pioneer_size=max(4, args.pool // 8), rerank_size=args.rerank,
     )
     rate = args.rate if args.rate > 0 else math.inf
+    write_rate = args.write_rate if args.write_rate > 0 else math.inf
     reg = TenantRegistry()
     tenants = [f"tenant-{t}" for t in range(max(args.tenants, 1))]
     for t in tenants:
-        reg.register(t, TenantPolicy(params=params, rate=rate,
-                                     burst=args.burst))
-    reqs = [
+        reg.register(t, TenantPolicy(
+            params=params, rate=rate, burst=args.burst,
+            write_rate=write_rate, write_burst=max(args.burst, 1.0),
+        ))
+    read_reqs = [
         Request(tenants[i % len(tenants)],
                 Query(ds.query_features[i],
                       [MATCH(int(v)) for v in ds.query_attrs[i]]),
                 request_id=i)
         for i in range(args.requests)
     ]
+    reqs = list(read_reqs)
+
+    deleted: list = []
+    if n_writes:
+        eng = MutableEngine(eng, CompactionPolicy(max_delta_rows=args.max_delta_rows))
+        n_build = args.n - n_writes
+        rng = np.random.default_rng(7)
+        deleted = sorted(
+            int(i) for i in
+            rng.choice(n_build, size=min(n_writes // 4, n_build), replace=False)
+        )
+        writes = [
+            Upsert(tenants[i % len(tenants)], ds.features[n_build + i],
+                   ds.attrs[n_build + i], id=n_build + i)
+            for i in range(n_writes)
+        ] + [Delete(tenants[i % len(tenants)], d)
+             for i, d in enumerate(deleted)]
+        # interleave writes uniformly through the read stream
+        stride = max(len(reqs) // max(len(writes), 1), 1)
+        mixed: list = []
+        wi = 0
+        for i, r in enumerate(reqs):
+            mixed.append(r)
+            while wi * stride <= i and wi < len(writes):
+                mixed.append(writes[wi])
+                wi += 1
+        mixed.extend(writes[wi:])
+        reqs = mixed
 
     # warmup: compile the executables the stream will replay (deterministic
     # loop, same buckets/params) so the timed run measures serving, not
-    # planning and compiling
-    warm = min(len(reqs), max(buckets))
-    serve_loop(eng, [(0.0, r) for r in reqs[:warm]],
+    # planning and compiling. Reads only: warming must not write.
+    warm = min(len(read_reqs), max(buckets))
+    serve_loop(eng, [(0.0, r) for r in read_reqs[:warm]],
                TenantRegistry(default_policy=TenantPolicy(params=params)),
                window_ms=args.window_ms, buckets=buckets)
 
-    print(f"serving {len(reqs)} requests from {len(tenants)} tenants "
-          f"(window={args.window_ms}ms, buckets={buckets})")
+    print(f"serving {len(reqs)} requests ({len(read_reqs)} queries, "
+          f"{len(reqs) - len(read_reqs)} writes) from {len(tenants)} "
+          f"tenants (window={args.window_ms}ms, buckets={buckets})")
     result_cache = None
     if args.result_cache > 0:
         result_cache = ResultCache(
@@ -221,7 +265,7 @@ def main(argv=None) -> None:
         futs = [srv.submit(r) for r in reqs]
         results = [f.result() for f in futs]
 
-    done = [r for r in results if r.ok]
+    done = [r for r in results if r.ok and hasattr(r, "ids")]
     snap = srv.stats.snapshot()
     lat = snap["latency_ms"]
     print(f"[served] {snap['completed']}/{snap['submitted']} completed, "
@@ -240,7 +284,7 @@ def main(argv=None) -> None:
     for t, c in snap["per_tenant"].items():
         print(f"    {t}: {c['completed']}/{c['submitted']} served "
               f"({c['qps']:.0f} qps, {c['rejected']} shed)")
-    if eng.is_partitioned:
+    if getattr(eng, "is_partitioned", False):  # a MutableEngine never is
         store = eng.index.store.stats()
         print(f"  segment store: {store['loads']} loads, {store['hits']} hits, "
               f"{store['evictions']} evictions, {store['prefetch_hits']} prefetch "
@@ -251,6 +295,17 @@ def main(argv=None) -> None:
         print(f"  result cache: {rc['hits']} hits / {rc['misses']} misses "
               f"(hit rate {rc['hit_rate']:.2f}, {rc['invalidations']} "
               f"invalidated, {rc['served']} served without device work)")
+    if "writes" in snap:
+        w = snap["writes"]
+        print(f"  writes: {w['upserts']} upserts, {w['deletes']} deletes, "
+              f"{w['shed']} shed; {w['merges']} merges "
+              f"(p50={w['merge_ms_p50']:.0f}ms p95={w['merge_ms_p95']:.0f}ms)")
+    if "delta" in snap:
+        d = snap["delta"]
+        print(f"  delta: {d['delta_alive']} alive rows / "
+              f"{d['tombstones']} tombstones "
+              f"(logical n={d['logical_n']}, "
+              f"{d['delta_result_fraction']:.1%} of served ids from delta)")
 
     if tracer is not None:
         traces = tracer.traces()
@@ -266,13 +321,20 @@ def main(argv=None) -> None:
     if done:
         take = [r.request_id for r in done]
         ids = np.stack([r.ids for r in done])
+        # the oracle scans the post-write corpus: held-out rows were
+        # upserted back with their original values, deleted ids are pushed
+        # out of range so they can never rank
+        feats = ds.features
+        if deleted:
+            feats = feats.copy()
+            feats[np.asarray(deleted)] = 1e6
         truth = brute_force_hybrid(
-            to_tensor(ds.features, torch.float32, dev),
+            to_tensor(feats, torch.float32, dev),
             to_tensor(ds.attrs, torch.int32, dev),
             ds.query_features[take], ds.query_attrs[take], args.k,
         )
         print(f"  Recall@{args.k}={recall_at_k(ids, truth.ids.cpu(), args.k):.3f} "
-              f"(vs exact oracle, completed requests)")
+              f"(vs exact post-write oracle, completed requests)")
 
 
 if __name__ == "__main__":

@@ -130,7 +130,7 @@ class _Operands:
 
 def _ok_local(part, sub) -> Tensor:
     """(b, n_pad) hard admissibility on one partition: the semantics of the
-    engine's ``_ok_matrix`` (containment × ONE_OF membership × wildcard),
+    engine's ``admissible_matrix`` (containment × ONE_OF membership × wildcard),
     plus the pad-row mask."""
     attrs_p = part.attrs[None, :, :]
     okl = (attrs_p >= sub.lo[:, None, :]) & (attrs_p <= sub.hi[:, None, :])

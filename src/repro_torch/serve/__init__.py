@@ -10,10 +10,11 @@ built for:
 
 * ``Request`` / ``Completed`` / ``Rejected`` — typed request/response
   surface; load shedding is a result, not an exception.
-* ``Upsert`` / ``Delete`` / ``WriteAck`` — the write path. An engine
-  without ``upsert`` answers each write ``Rejected(immutable_engine)``;
-  every engine of this package does until the mutable engine is ported
-  (ROADMAP queue 1, item 8).
+* ``Upsert`` / ``Delete`` / ``WriteAck`` — the write path (engine must be
+  a ``repro_torch.mutable.MutableEngine``; an engine without ``upsert``
+  answers ``Rejected(immutable_engine)``): separate per-tenant write token
+  buckets, writes applied before their ack resolves (read-your-writes),
+  background delta→main merges that never block serving.
 * ``TenantRegistry`` / ``TenantPolicy`` — per-tenant default
   ``SearchParams``, k/pool caps, deterministic token-bucket admission.
 * ``Microbatcher`` / ``RequestQueue`` — coalesce admitted requests by

@@ -10,13 +10,9 @@ the wall clock for live use (``launch/serve.py``).
 
 Every submitted request receives exactly one typed response (``Completed``
 or ``Rejected``), returned in submission order by ``serve_loop`` and as a
-``Future`` by ``ThreadedServer.submit``.
-
-Writes (``Upsert`` / ``Delete``) are answered
-``Rejected(reason=immutable_engine)``, as the reference answers them for an
-engine without ``upsert``: every engine of this package is immutable. The
-reference's write apply, inline merge and background merge worker come with
-the mutable engine (ROADMAP queue 1, item 8).
+``Future`` by ``ThreadedServer.submit``; writes are answered with a
+``WriteAck`` by a ``repro_torch.mutable.MutableEngine`` and
+``Rejected(immutable_engine)`` by an engine without ``upsert``.
 """
 from __future__ import annotations
 
@@ -27,6 +23,8 @@ import time
 from concurrent.futures import Future
 from typing import Iterable, List, Optional, Tuple, Union
 
+import torch
+
 from repro_torch.api import Engine
 from repro_torch.cache.results import ResultCache, result_key
 from repro_torch.obs.http import MetricsServer
@@ -34,7 +32,7 @@ from repro_torch.obs.trace import Tracer
 from repro_torch.serve import request as request_mod
 from repro_torch.serve.batcher import DEFAULT_BUCKETS, Microbatcher
 from repro_torch.serve.request import (
-    Completed, Delete, Rejected, Request, Response, Upsert,
+    Completed, Delete, Rejected, Request, Response, Upsert, WriteAck,
 )
 from repro_torch.serve.stats import ServerStats
 from repro_torch.serve.tenants import TenantPolicy, TenantRegistry
@@ -43,6 +41,25 @@ __all__ = ["ThreadedServer", "serve_loop"]
 
 Submittable = Union[Request, Upsert, Delete]
 TraceItem = Union[Submittable, Tuple[float, Submittable]]
+
+_MERGE = object()  # inbox tag: a prepared merge ready for its fast apply
+
+
+def _apply_write(engine, write) -> WriteAck:
+    """Apply one admitted write to a mutable engine and build its ack.
+    The caller has already checked that the engine takes writes."""
+    if isinstance(write, Upsert):
+        wid = engine.upsert(write.vector, write.attrs, id=write.id)
+        applied = True
+        op = "upsert"
+    else:
+        wid = int(write.id)
+        applied = engine.delete(wid)
+        op = "delete"
+    return WriteAck(
+        request_id=write.request_id, tenant=write.tenant, id=int(wid),
+        op=op, applied=applied, delta_rows=engine.delta.n_rows,
+    )
 
 
 def serve_loop(
@@ -68,11 +85,13 @@ def serve_loop(
     *service* time is still measured wall time (it feeds latency stats, not
     decisions).
 
-    Trace items may also be ``Upsert``/``Delete`` writes. Every engine of
-    this package is immutable, so each is answered
-    ``Rejected(immutable_engine)``, as the reference answers writes to its
-    immutable ``Engine``; admitting, applying and merging writes come with
-    the mutable engine (ROADMAP queue 1, item 8).
+    Trace items may also be ``Upsert``/``Delete`` writes (engine must be a
+    ``MutableEngine``): each is admitted against the tenant's write bucket,
+    applied *inline* at its arrival time — so every later query in the
+    trace reads the post-write state — and acked with a ``WriteAck``.
+    When the engine's compaction policy fires, the merge runs synchronously
+    at that trace position (deterministic; the threaded front-end instead
+    overlaps the expensive prepare with serving).
 
     ``result_cache`` attaches a serve-layer ``repro_torch.cache.ResultCache``:
     after admission, a request whose (tenant, query, params) signature hits
@@ -125,12 +144,27 @@ def serve_loop(
         idx = len(out)
         out.append(None)
         if isinstance(req, (Upsert, Delete)):
-            # no engine of this package takes writes (ROADMAP item 8)
-            reason = request_mod.REJECT_IMMUTABLE
-            stats.record_write_reject(req.tenant, reason)
-            out[idx] = Rejected(
-                request_id=req.request_id, tenant=req.tenant, reason=reason,
-            )
+            # write path: admit → apply inline (read-your-writes: every
+            # later trace item queries the post-write state) → merge when
+            # the compaction policy fires
+            if not hasattr(engine, "upsert"):
+                reason = request_mod.REJECT_IMMUTABLE
+            else:
+                reason = registry.admit_write(req, now)
+            if reason is not None:
+                stats.record_write_reject(req.tenant, reason)
+                out[idx] = Rejected(
+                    request_id=req.request_id, tenant=req.tenant,
+                    reason=reason,
+                )
+                continue
+            ack = _apply_write(engine, req)
+            stats.record_write(req.tenant, ack.op)
+            out[idx] = ack
+            if engine.should_merge():
+                merged = engine.merge()
+                if merged is not None:
+                    stats.record_merge(merged["wall_ms"])
             continue
         stats.record_submit(req.tenant)
         if req.request_id in slot:  # collides with an in-flight request
@@ -180,11 +214,16 @@ class ThreadedServer:
     owns the ``Microbatcher`` and flushes groups on window expiry or full
     buckets.
 
-    Writes (``Upsert``/``Delete``) resolve on the caller's thread as
-    ``Rejected(immutable_engine)`` (``server_stopped`` after ``stop()``).
-    The reference's write admission, inline apply and background merge come
-    with the mutable engine (ROADMAP queue 1, item 8). Use as a context
-    manager::
+    Writes (``Upsert``/``Delete``) are admitted against the tenant's write
+    bucket and *applied synchronously* on the caller's thread — the
+    returned Future is already resolved, so read-your-writes holds for any
+    request submitted afterwards. Merging never blocks serving: when the
+    compaction policy fires, a dedicated thread runs the expensive
+    ``merge_prepare`` off-lock while queries keep flowing, then posts the
+    prepared index to the worker, which performs the fast pointer-swap
+    ``merge_apply`` between batches. The merge thread issues its device
+    work on the device's current stream, so the swap needs no cross-stream
+    fence. Use as a context manager::
 
         with ThreadedServer(engine, registry, window_ms=2.0) as srv:
             futs = [srv.submit(r) for r in reqs]
@@ -230,6 +269,8 @@ class ThreadedServer:
         self._lock = threading.Lock()  # admission + id assignment
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        self._merge_thread: Optional[threading.Thread] = None
+        self._merge_inflight = False
         self._t0 = time.monotonic()
         self._next_id = 0
 
@@ -250,13 +291,22 @@ class ThreadedServer:
         no Future is ever stranded."""
         if self._thread is not None:
             self._stop.set()
+            # in-flight merge first: its prepared result lands in the inbox
+            # and the worker applies it before its final emptiness check
+            if self._merge_thread is not None:
+                self._merge_thread.join()
+                self._merge_thread = None
             self._thread.join()
             self._thread = None
         while True:
             try:
-                req, _ = self._inbox.get_nowait()
+                item = self._inbox.get_nowait()
             except queue_mod.Empty:
                 break
+            if item[0] is _MERGE:  # defensive: the worker normally applies it
+                self._finish_merge(item[1])
+                continue
+            req, _ = item
             with self._lock:
                 fut = self._futures.pop(req.request_id, None)
                 self._pending_keys.pop(req.request_id, None)
@@ -286,7 +336,7 @@ class ThreadedServer:
     def submit(self, req: Submittable) -> "Future[Response]":
         """Admit (or shed) on the caller's thread; returns a Future that
         resolves to this request's typed response. Writes resolve before
-        returning."""
+        returning (they are applied synchronously)."""
         if isinstance(req, (Upsert, Delete)):
             return self._submit_write(req)
         fut: "Future[Response]" = Future()
@@ -338,21 +388,80 @@ class ThreadedServer:
         return fut
 
     def _submit_write(self, write: Union[Upsert, Delete]) -> "Future[Response]":
-        """Answer one write on the caller's thread: no engine of this
-        package takes writes until ROADMAP item 8."""
+        """Admit and apply one write on the caller's thread. By the time the
+        (already resolved) Future returns, the write is visible to every
+        query submitted afterwards — read-your-writes."""
         fut: "Future[Response]" = Future()
         with self._lock:
             if write.request_id is None:
                 write = dataclasses.replace(write, request_id=self._next_id)
             self._next_id = max(self._next_id, write.request_id) + 1
-            reason = (request_mod.REJECT_STOPPED if self._stop.is_set()
-                      else request_mod.REJECT_IMMUTABLE)
-            self.stats.record_write_reject(write.tenant, reason)
-            fut.set_result(Rejected(
-                request_id=write.request_id, tenant=write.tenant,
-                reason=reason,
-            ))
+            if self._stop.is_set():
+                reason: Optional[str] = request_mod.REJECT_STOPPED
+            elif not hasattr(self._engine, "upsert"):
+                reason = request_mod.REJECT_IMMUTABLE
+            else:
+                reason = self.registry.admit_write(write, self._now())
+            if reason is not None:
+                self.stats.record_write_reject(write.tenant, reason)
+                fut.set_result(Rejected(
+                    request_id=write.request_id, tenant=write.tenant,
+                    reason=reason,
+                ))
+                return fut
+            ack = _apply_write(self._engine, write)
+            self.stats.record_write(write.tenant, ack.op)
+            fut.set_result(ack)
+        self._maybe_schedule_merge()
         return fut
+
+    # -- background merge ------------------------------------------------------
+
+    def _maybe_schedule_merge(self) -> None:
+        """Act on the compaction policy's decision: at most one merge in
+        flight, prepared off the serving path on its own thread."""
+        eng = self._engine
+        if not hasattr(eng, "should_merge"):
+            return
+        with self._lock:
+            if (self._merge_inflight or self._stop.is_set()
+                    or not eng.should_merge()):
+                return
+            self._merge_inflight = True
+            self._merge_thread = threading.Thread(
+                target=self._merge_prepare_worker, daemon=True
+            )
+            self._merge_thread.start()
+
+    def _merge_prepare_worker(self) -> None:
+        from repro_torch.mutable import merge as merge_mod
+
+        dev = self._engine.device
+        try:
+            if dev.type == "cuda":
+                # the thread starts on device 0: issue the prepare on the
+                # engine's device (its current stream, as the readers use)
+                torch.cuda.set_device(dev)
+            prepared = merge_mod.merge_prepare(self._engine)
+        except BaseException:
+            with self._lock:
+                self._merge_inflight = False
+            raise
+        if prepared is None:
+            with self._lock:
+                self._merge_inflight = False
+            return
+        self._inbox.put((_MERGE, prepared))  # the worker applies it between batches
+
+    def _finish_merge(self, prepared) -> None:
+        from repro_torch.mutable import merge as merge_mod
+
+        merged = merge_mod.merge_apply(self._engine, prepared)
+        wall_ms = prepared.prepare_ms + merged["apply_ms"]
+        self._engine.merge_ms.append(wall_ms)
+        self.stats.record_merge(wall_ms)
+        with self._lock:
+            self._merge_inflight = False
 
     # -- worker ---------------------------------------------------------------
 
@@ -381,8 +490,14 @@ class ThreadedServer:
                     min(deadline - self._now(), window), 1e-4
                 )
                 try:
-                    req, params = self._inbox.get(timeout=timeout)
-                    self._resolve(self._mb.enqueue(req, params, self._now()))
+                    item = self._inbox.get(timeout=timeout)
+                    if item[0] is _MERGE:  # fast swap between batches
+                        self._finish_merge(item[1])
+                    else:
+                        req, params = item
+                        self._resolve(
+                            self._mb.enqueue(req, params, self._now())
+                        )
                 except queue_mod.Empty:
                     pass
                 self._resolve(self._mb.flush_due(self._now()))

@@ -15,9 +15,8 @@ Writes are requests too: ``Upsert`` and ``Delete`` flow through the same
 submission surface, pass a *separate* per-tenant write token bucket, and
 are answered with a ``WriteAck`` (or ``Rejected``). A write is applied
 before its ack resolves, so read-your-writes holds: any query submitted
-after observing the ack sees the write. Every engine of this package is
-immutable until the mutable engine is ported (ROADMAP queue 1, item 8), so
-each write is answered ``Rejected(reason=REJECT_IMMUTABLE)`` today.
+after observing the ack sees the write. An engine without ``upsert`` (a
+plain ``Engine``) answers each write ``Rejected(reason=REJECT_IMMUTABLE)``.
 """
 from __future__ import annotations
 

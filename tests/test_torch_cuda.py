@@ -11,9 +11,13 @@ bitwise batch-invariant, and a search on integer-valued data must equal the
 CPU's plain-version search bit for bit, exact and quantized. The fm serve
 and retrieval steps on the card must agree with the CPU's. A serve_loop
 trace on the card returns, for every request, what its query returns
-searched alone, bit for bit, on both backends.
+searched alone, bit for bit, on both backends. A merge of the mutable
+engine on the card gives the CPU's adjacency on integer data, the delta
+scan equals its plain version, and the old index's memory is freed after
+the swap.
 """
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -528,3 +532,116 @@ def test_evict_all_returns_device_memory(cuda_dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     assert torch.cuda.memory_allocated() == before
+
+
+# ---------------------------------------------------------------------------
+# streaming mutability on the card
+# ---------------------------------------------------------------------------
+
+
+def _integer(x):
+    return np.clip(np.round(x / 33.5 * 4), -20, 20).astype(np.float32)
+
+
+def _writes(m, f, a, n0: int, inserts: int, seed: int = 0):
+    """``inserts`` new rows, 50 overwrites (integer-valued) and 50 deletes."""
+    for i in range(n0, n0 + inserts):
+        m.upsert(f[i], a[i], id=i)
+    rng = np.random.default_rng(seed)
+    picked = rng.choice(n0, 100, replace=False)
+    for i in picked[:50]:
+        m.upsert(f[i] + 1.0, (a[i] + 1) % 3, id=int(i))
+    for i in picked[50:]:
+        assert m.delete(int(i))
+
+
+def _cpu_copy(idx):
+    parts = (idx.features.cpu().numpy(), idx.attrs.cpu().numpy(), idx.graph.cpu().numpy())
+    meta = [{k: getattr(c, k) for k in c.__dataclass_fields__}
+            for c in (idx.metric_cfg, idx.help_cfg, idx.stats)]
+    return index_from_numpy(*parts, *meta, device="cpu")
+
+
+def test_merge_on_card_equals_cpu_on_integer_data(cuda_dev):
+    """n = 20,000 integer rows, 200 inserts, 50 overwrites and 50 deletes
+    merged on the card and on the CPU: the same adjacency, the same linked
+    and repaired counts, and the same federated graph search after it."""
+    from repro_torch.mutable import CompactionPolicy, MutableEngine
+
+    ds = make_hybrid_dataset(n=20_200, n_queries=64, profile="sift", seed=0)
+    f, qf = _integer(ds.features), _integer(ds.query_features)
+    card = Engine.build(f[:20_000], ds.attrs[:20_000], device=cuda_dev)
+    cpu = Engine(_cpu_copy(card.index))
+    out = {}
+    for name, eng in (("card", card), ("cpu", cpu)):
+        m = MutableEngine(eng, CompactionPolicy(max_delta_rows=10 ** 9))
+        _writes(m, f, ds.attrs, 20_000, 200)
+        stats = m.merge()
+        q = QueryBatch.match(qf, ds.query_attrs)
+        res = m.search(q, SearchParams(k=10, backend="graph"))
+        out[name] = (m.index.graph.cpu(), stats, res.ids.cpu(), res.sqdists.cpu())
+    assert torch.equal(out["card"][0], out["cpu"][0])
+    for key in ("linked", "repaired", "tombstones", "n_main"):
+        assert out["card"][1][key] == out["cpu"][1][key], key
+    assert torch.equal(out["card"][2], out["cpu"][2])
+    assert torch.equal(out["card"][3], out["cpu"][3])
+
+
+@pytest.mark.parametrize("scan", ["oracle", "soft", "enforce"])
+def test_delta_scan_on_card_equals_plain_version(cuda_dev, scan):
+    """The delta segment's fused_auto scan on the card against the same
+    segment on the CPU (the plain version) on integer rows: equal ids and
+    distances for the four predicate kinds; 300 rows (one capacity
+    doubling), overwrites and kills mirrored on the device."""
+    from repro_torch.core.auto import MetricConfig
+    from repro_torch.mutable import DeltaSegment
+
+    ds = make_hybrid_dataset(n=300, n_queries=32, profile="sift", seed=2)
+    f, qf = _integer(ds.features), _integer(ds.query_features)
+    segs = {}
+    for dev in (cuda_dev, torch.device("cpu")):
+        d = DeltaSegment(f.shape[1], ds.attrs.shape[1], device=dev)
+        for i in range(300):
+            d.append(i % 280, f[i], ds.attrs[i])
+        for i in range(0, 280, 7):
+            d.kill(i)
+        segs[dev.type] = d
+    cfg = MetricConfig(mode="auto", alpha=ALPHA)
+    for kind, q in _part_batches(SimpleNamespace(query_features=qf,
+                                                 query_attrs=ds.query_attrs), 32).items():
+        f0 = fused_auto.launches
+        got = segs["cuda"].topk(q, 10, cfg, oracle=scan == "oracle", enforce=scan == "enforce")
+        want = segs["cpu"].topk(q, 10, cfg, oracle=scan == "oracle", enforce=scan == "enforce")
+        assert fused_auto.launches == f0 + 1
+        assert torch.equal(got[0].cpu(), want[0]), kind
+        assert torch.equal(got[1].cpu(), want[1]), kind
+
+
+def test_merge_releases_the_old_index(cuda_dev):
+    """After a merge swaps the index, the old index's device memory is
+    freed once nothing holds it: what stays allocated above the engine's
+    own footprint is the appended rows and small buffers, not a second
+    index."""
+    import gc
+
+    from repro_torch.mutable import CompactionPolicy, MutableEngine
+
+    ds = make_hybrid_dataset(n=20_300, n_queries=8, profile="sift", seed=4)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    m = MutableEngine(Engine.build(ds.features[:20_000], ds.attrs[:20_000], device=cuda_dev),
+                      CompactionPolicy(max_delta_rows=10 ** 9))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    idx = m.index
+    index_bytes = sum(t.numel() * t.element_size() for t in (idx.features, idx.attrs, idx.graph))
+    del idx
+    _writes(m, ds.features, ds.attrs, 20_000, 300)
+    assert m.merge()["linked"] == 350
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    grown = torch.cuda.memory_allocated() - base
+    row_bytes = index_bytes // 20_000
+    assert grown < 300 * row_bytes + index_bytes // 4, (grown, index_bytes)

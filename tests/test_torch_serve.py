@@ -432,8 +432,35 @@ def test_cli_serves_on_the_cpu(capsys):
     assert recall >= 0.8
 
 
-@pytest.mark.parametrize("flag,item", [("--writes", 8), ("--write-rate", 8),
-                                       ("--max-delta-rows", 8), ("--hot-rows", 9)])
+@pytest.mark.parametrize("flag,value", [("--writes", "200"), ("--write-rate", "5"),
+                                        ("--max-delta-rows", "64")])
+def test_cli_serves_writes_on_the_cpu(capsys, flag, value):
+    """Each write flag of the reference's CLI works in the port's: 200 held
+    out rows stream back as upserts (and 50 deletes) through a
+    MutableEngine; ``--write-rate`` sheds writes past each tenant's burst,
+    and ``--max-delta-rows`` below the write count makes merges fire."""
+    argv = ["--device", "cpu", "--n", "1500", "--requests", "48", "--writes", "200"]
+    if flag != "--writes":
+        argv += [flag, value]
+    tlaunch.main(argv)
+    out = capsys.readouterr().out
+    assert "building index over 1300 nodes" in out and "200 rows held out" in out
+    assert "[served] 48/48 completed, 0 shed" in out
+    line = out.split("  writes: ")[1].split("\n")[0]
+    upserts, deletes, shed = (int(line.split(f" {w}")[0].rsplit(" ", 1)[-1])
+                              for w in ("upserts", "deletes", "shed"))
+    merges = int(line.split(" merges")[0].rsplit(" ", 1)[-1])
+    assert upserts + deletes + shed == 250
+    if flag == "--write-rate":
+        assert shed > 0
+    else:
+        assert (upserts, deletes, shed) == (200, 50, 0)
+    assert (merges > 0) == (flag == "--max-delta-rows")
+    assert "delta:" in out
+    assert float(out.split("Recall@10=")[1].split()[0]) >= 0.8
+
+
+@pytest.mark.parametrize("flag,item", [("--hot-rows", 9)])
 def test_cli_unported_flags_exit_before_building(capsys, flag, item):
     with pytest.raises(SystemExit) as exc:
         tlaunch.main(["--device", "cpu", flag, "8"])
