@@ -401,7 +401,7 @@ def link_nodes(
         cand_ids, cand_d = res.ids, res.sqdists  # (D, pool)
         sync_span(sp, cand_d)
 
-    with obs_trace.span("link_hop") as sp:
+    with obs_trace.span("link_hop"):  # ends in a host copy: no sync needed
         # (1b) one-hop expansion: the candidates' own neighbours
         hop_ids = gops.gather_rows(graph, cand_ids).reshape(d, -1)  # (D, pool·Γ)
         hop_ids = hop_ids.masked_fill((cand_ids < 0).repeat_interleave(gamma, dim=1), INVALID)

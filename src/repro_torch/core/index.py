@@ -135,8 +135,8 @@ class StableIndex:
         n_new = max(n_old, int(ids.max()) + 1)
         idx = torch.from_numpy(ids).to(dev)
 
-        def grown(a: Tensor, rows: Tensor, fill=0) -> Tensor:
-            pad = a.new_full((n_new - n_old,) + tuple(a.shape[1:]), fill)
+        def grown(a: Tensor, rows: Tensor) -> Tensor:
+            pad = a.new_zeros((n_new - n_old,) + tuple(a.shape[1:]))
             return torch.cat([a, pad]).index_copy_(0, idx, rows.to(a.dtype))
 
         feats_new = to_tensor(features, torch.float32, dev)

@@ -36,6 +36,7 @@ from repro.core.index import StableIndex as JIndex  # noqa: E402
 from repro_torch import api as tapi, mutable as tmut, serve as tserve  # noqa: E402
 from repro_torch.api import planner as tplanner, query as tquery  # noqa: E402
 from repro_torch.core import help_graph as thelp  # noqa: E402
+from repro_torch.core.auto import MetricConfig as TMetric  # noqa: E402
 from repro_torch.core.baselines import brute_force_hybrid, recall_at_k  # noqa: E402
 from repro_torch.core.graph_ops import INVALID  # noqa: E402
 from repro_torch.core.help_graph import HelpConfig as THelp  # noqa: E402
@@ -266,14 +267,8 @@ def test_delta_topk_matches_reference(data, batches, base, kind, scan):
     jb, tb = batches
     args = dict(oracle=scan == "oracle", enforce=scan == "enforce")
     ji, js = jd.topk(jb[kind], K, cfg, **args)
-    ti, ts = td.topk(tb[kind], K, thelp_metric(cfg), **args)
+    ti, ts = td.topk(tb[kind], K, TMetric(**dataclasses.asdict(cfg)), **args)
     assert_results_alike(ji, js, ti.numpy(), ts.numpy())
-
-
-def thelp_metric(jcfg):
-    from repro_torch.core.auto import MetricConfig
-
-    return MetricConfig(**dataclasses.asdict(jcfg))
 
 
 # ---------------------------------------------------------------------------
