@@ -12,9 +12,9 @@ CPU's plain-version search bit for bit, exact and quantized. The fm serve
 and retrieval steps on the card must agree with the CPU's. A serve_loop
 trace on the card returns, for every request, what its query returns
 searched alone, bit for bit, on both backends. A merge of the mutable
-engine on the card gives the CPU's adjacency on integer data, the delta
-scan equals its plain version, and the old index's memory is freed after
-the swap.
+engine on the card gives the CPU's adjacency (and codes, for pq and pq4)
+on integer data, the delta scan equals its plain version, and the old
+index's memory is freed after the swap.
 """
 import dataclasses
 from types import SimpleNamespace
@@ -562,29 +562,53 @@ def _cpu_copy(idx):
     return index_from_numpy(*parts, *meta, device="cpu")
 
 
-def test_merge_on_card_equals_cpu_on_integer_data(cuda_dev):
+def _integer_store(idx, mode: str) -> tuple[dict, dict]:
+    """(meta, arrays) of a codec store over ``idx``'s rows whose state is
+    integer-valued (rounded centroids), so every ADC sum is exact."""
+    store = QuantizedVectors.build(idx.features, QuantConfig(mode, pq_subspaces=16,
+                                                             pq_train_iters=3))
+    store.codebook.centroids.round_()
+    meta = {"cfg": {k: getattr(store.cfg, k) for k in store.cfg.__dataclass_fields__},
+            "dim": store.codebook.dim, "codec": codec_spec(store.cfg)}
+    return meta, {"codes": store.encode_rows(idx.features).numpy(),
+                  "centroids": store.codebook.centroids.numpy()}
+
+
+@pytest.mark.parametrize("codec", ["none", "pq", "pq4"])
+def test_merge_on_card_equals_cpu_on_integer_data(cuda_dev, codec):
     """n = 20,000 integer rows, 200 inserts, 50 overwrites and 50 deletes
-    merged on the card and on the CPU: the same adjacency, the same linked
-    and repaired counts, and the same federated graph search after it."""
+    merged on the card and on the CPU: the same adjacency (and codes, for a
+    codec with integer centroids), the same linked and repaired counts, and
+    the same federated searches on both backends after it."""
     from repro_torch.mutable import CompactionPolicy, MutableEngine
 
     ds = make_hybrid_dataset(n=20_200, n_queries=64, profile="sift", seed=0)
     f, qf = _integer(ds.features), _integer(ds.query_features)
-    card = Engine.build(f[:20_000], ds.attrs[:20_000], device=cuda_dev)
-    cpu = Engine(_cpu_copy(card.index))
+    built = _cpu_copy(Engine.build(f[:20_000], ds.attrs[:20_000], device=cuda_dev).index)
+    parts = (built.features.numpy(), built.attrs.numpy(), built.graph.numpy())
+    meta = [{k: getattr(c, k) for k in c.__dataclass_fields__}
+            for c in (built.metric_cfg, built.help_cfg, built.stats)]
+    store = None if codec == "none" else _integer_store(built, codec)
+    q = QueryBatch.match(qf, ds.query_attrs)
     out = {}
-    for name, eng in (("card", card), ("cpu", cpu)):
-        m = MutableEngine(eng, CompactionPolicy(max_delta_rows=10 ** 9))
+    for dev in (cuda_dev, torch.device("cpu")):
+        quant = None if store is None else quant_from_numpy(*store, dev)
+        m = MutableEngine(Engine(index_from_numpy(*parts, *meta, device=dev, quant=quant)),
+                          CompactionPolicy(max_delta_rows=10 ** 9))
         _writes(m, f, ds.attrs, 20_000, 200)
         stats = m.merge()
-        q = QueryBatch.match(qf, ds.query_attrs)
-        res = m.search(q, SearchParams(k=10, backend="graph"))
-        out[name] = (m.index.graph.cpu(), stats, res.ids.cpu(), res.sqdists.cpu())
-    assert torch.equal(out["card"][0], out["cpu"][0])
+        res = [m.search(q, SearchParams(k=10, backend=b)) for b in ("graph", "brute")]
+        codes = None if codec == "none" else m.index.quant.codes.cpu()
+        out[dev.type] = (m.index.graph.cpu(), stats, res, codes)
+    card, cpu = out["cuda"], out["cpu"]
+    assert torch.equal(card[0], cpu[0])
     for key in ("linked", "repaired", "tombstones", "n_main"):
-        assert out["card"][1][key] == out["cpu"][1][key], key
-    assert torch.equal(out["card"][2], out["cpu"][2])
-    assert torch.equal(out["card"][3], out["cpu"][3])
+        assert card[1][key] == cpu[1][key], key
+    for a, b in zip(card[2], cpu[2]):
+        assert torch.equal(a.ids.cpu(), b.ids) and torch.equal(a.sqdists.cpu(), b.sqdists)
+        assert torch.equal(torch.as_tensor(a.n_code_evals).cpu(), torch.as_tensor(b.n_code_evals))
+    if codec != "none":
+        assert torch.equal(card[3], cpu[3])
 
 
 @pytest.mark.parametrize("scan", ["oracle", "soft", "enforce"])
