@@ -693,7 +693,7 @@ def test_freshness_through_serve_on_the_graph_backend():
     brute backend's is 1."""
     ds = make_hybrid_dataset(n=3150, n_queries=64, profile="sift", seed=0)
     eng = tapi.Engine.build(ds.features[:3000], ds.attrs[:3000],
-                            THelp(gamma=24, gamma_new=6, max_rounds=8), device="cpu")
+                            THelp(gamma=16, gamma_new=6, max_rounds=8), device="cpu")
     m = tmut.MutableEngine(eng, tmut.CompactionPolicy(**NO_MERGE))
     params = tapi.SearchParams(k=K, pool_size=128, pioneer_size=16, backend="graph")
     reg = tserve.TenantRegistry(default_policy=tserve.TenantPolicy(params=params))
