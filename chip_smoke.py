@@ -68,6 +68,21 @@ Phases:
      requests of the serve trace on the partitioned engine, every 16th
      equal to its solo search; fused_auto and adc_scan at the probe shape
      it runs most, timed beside their bounds; one profiled search.
+     Then the tiered step: a TieredEngine over the pq engine (hot budget
+     N/8, an epoch every 128 queries); MATCH, ONE_OF and BETWEEN batches
+     of 128 on both backends bit for bit equal to the untiered engine in
+     the cold, warm and churned tier states; the reference's cache_sweep
+     traffic (512 requests over 128 distinct queries, Zipf skews 0, 0.8
+     and 1.2, bursts of mean 4) served untiered, tiered at hot 0 and N/8,
+     and with a ResultCache, every answer equal to the untiered stream's
+     (service QPS, p50 / p99, tier and cache hit rates, promotions); the
+     rerank gather of an all-hot and an all-cold bucket-8 batch on the host
+     clock; on the partitioned engine under its cap the skew-1.2 trace
+     untiered and with hot partitions pinned (answers equal, pinned rows
+     under the cap, loads and ms a search); gather_auto at the tiered
+     rerank (B = 8 and 128 against 40 staged rows each, equal bit for bit
+     to the same call over the row table) and at a serve bucket-8 hop,
+     timed beside its bound.
      Then the mutable step on the exact index, handed over so that the
      merge frees it: a MutableEngine with a WAL; with no writes its
      search equals Engine.search bit for bit; 3,072 inserts (a second
@@ -101,7 +116,7 @@ Phases:
      several batches, then each profiled once; last of all, one more
      Engine.build of phase 4's data under the profiler
   6. a JSON line of every kernel's launches in phases 4 and 5 (the exact,
-     serve, quantized, partitioned, mutable and recsys paths, each counted
+     serve, quantized, partitioned, tiered, mutable and recsys paths, each counted
      from 0; a
      kernel of a path that the path never launched fails the run), error
      and times
@@ -232,6 +247,17 @@ MUT_SMALL_INSERTS, MUT_SMALL_DELETES, MUT_RECALL_FLOOR = 1500, 750, 0.9
 #: capacity of 4,096 rows) and link_nodes's hop scoring (D = 3,584 linked
 #: rows against pool·Γ = 128·32 = 4,096 candidates)
 MUT_SCAN_ROWS, MUT_HOP_SHAPE = 4096, (3584, 4096)
+#: phase 4's tiered step: the traffic of the reference's cache_sweep
+#: (benchmarks/paper_benchmarks.py:807-816, benchmarks/trace.py): 512
+#: requests over 128 distinct queries at Zipf skews 0, 0.8 and 1.2, 4
+#: tenants round robin, 5e-5 s a request in geometric bursts of mean 4;
+#: window 2 ms, buckets 1/8/32; hot budgets 0 and N/8, an epoch every 128
+#: queries; the graph backend pinned at k = 10 (pool 40: the rerank's R)
+TIER_REQUESTS, TIER_DISTINCT, TIER_SKEWS = 512, 128, (0.0, 0.8, 1.2)
+TIER_SPACING_S, TIER_BURST, TIER_BUCKETS, TIER_EPOCH = 5e-5, 4.0, (1, 8, 32), 128
+#: gather_auto at the tiered rerank (R rows a query in a staged buffer) at
+#: the batches timed, and at a serve bucket-8 graph hop (B, C)
+TIER_RERANK, TIER_STAGED_BATCHES, TIER_HOP8 = 40, (8, 128), (8, 1280)
 
 
 def log(*a):
@@ -2106,6 +2132,310 @@ def check_mutable_small(dev, seed: int) -> dict:
     return {"card": card, "cpu": cpu}
 
 
+def zipf_trace(ds, skew: float, seed: int):
+    """(trace, info): a copy of ``zipf_query_trace`` (benchmarks/trace.py:32)
+    over ds's first TIER_DISTINCT queries with the port's request types.
+    Request i draws its query from P(rank r) ∝ 1/r^skew (uniform at 0), a
+    repeat is the same vector and predicates verbatim; arrivals come in
+    geometric bursts of mean TIER_BURST that share one timestamp, the clock
+    advancing TIER_SPACING_S a request; tenants round robin."""
+    from repro_torch.api import MATCH, Query
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    pool, n_requests = TIER_DISTINCT, TIER_REQUESTS
+    if skew > 0:
+        w = 1.0 / np.arange(1, pool + 1, dtype=np.float64) ** float(skew)
+        w /= w.sum()
+        qidx = rng.choice(pool, size=n_requests, p=w)
+    else:
+        qidx = rng.integers(0, pool, size=n_requests)
+    times = np.empty(n_requests, np.float64)
+    t, i = 0.0, 0
+    while i < n_requests:
+        b = min(int(rng.geometric(1.0 / TIER_BURST)), n_requests - i)
+        times[i:i + b] = t
+        t += TIER_SPACING_S * b
+        i += b
+    trace = [(float(times[i]), Request(f"t{i % SERVE_TENANTS}", Query(
+        ds.query_features[j], [MATCH(int(v)) for v in ds.query_attrs[j]])))
+        for i, j in enumerate(qidx)]
+    counts = np.bincount(qidx, minlength=pool)
+    info = dict(skew=skew, distinct_queries=int((counts > 0).sum()),
+                repeat_fraction=float((n_requests - (counts > 0).sum()) / n_requests),
+                head10_traffic_share=float(np.sort(counts)[::-1][:max(1, pool // 10)].sum()
+                                           / n_requests))
+    return trace, info
+
+
+def run_tiered_path(dev, ds, eng, peng, part_params, cap: int, seed: int):
+    """Phase 4, tiered: a TieredEngine over the pq engine ``eng`` (hot
+    budget N/8, an epoch every TIER_EPOCH queries). MATCH, ONE_OF and
+    BETWEEN batches of 128 on the graph and brute backends equal the
+    untiered engine's bit for bit in the cold, warm and churned tier
+    states; cache_sweep's Zipf traces served untiered, tiered at hot 0 and
+    N/8, and tiered with a ResultCache, every answer equal to the untiered
+    stream's; the rerank gather's host ms for an all-hot and an all-cold
+    bucket-8 batch. Then, on the partitioned engine ``peng`` under its cap,
+    the skew-1.2 trace untiered and with pinned partitions (hot budget
+    cap / 2): answers equal, pinned rows under the cap, loads and ms a
+    search beside each other."""
+    from repro_torch.api import SearchParams
+    from repro_torch.cache import ResultCache, TieredEngine
+    from repro_torch.serve import Completed, ServerStats, TenantPolicy, TenantRegistry, serve_loop
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    n = eng.n_items
+    hot = n // 8
+    out = dict(hot_rows=hot, epoch_queries=TIER_EPOCH, bits={}, serve={})
+
+    # bits: each tier state against the untiered engine
+    batches = {k: q for k, q in predicate_batches(ds).items() if k in ("MATCH", "ONE_OF", "BETWEEN")}
+    for backend in ("graph", "brute"):
+        params = SearchParams(k=10, backend=backend)
+        refs = {kind: eng.search(q, params) for kind, q in batches.items()}
+        tiered = TieredEngine(eng, hot_rows=hot, epoch_queries=TIER_EPOCH)
+        for state in ("cold", "warm", "churned"):
+            if state == "churned":
+                # popularity moves to rows nobody returned, above the
+                # residents' counts even after their hysteresis
+                tiered.tracker.observe(np.tile(np.arange(n // 2, n // 2 + hot), 8))
+                tiered.refresh_tier()
+            for kind, q in batches.items():
+                got = tiered.search(q, params)
+                same = {f: bool(torch.equal(getattr(got, f), getattr(refs[kind], f)))
+                        for f in ("ids", "dists", "sqdists", "n_dist_evals", "n_code_evals")}
+                if not all(same.values()):
+                    raise SystemExit(f"tiered {backend} {kind} {state}: not bit for bit equal to "
+                                     f"the untiered engine ({same})")
+        st = tiered.tier_stats()
+        out["bits"][backend] = {k: st[k] for k in ("hot_row_hits", "cold_row_gathers",
+                                                  "tier_hit_rate", "promotions", "demotions",
+                                                  "epochs", "hot_rows_resident")}
+        if not (st["hot_row_hits"] > 0 and st["cold_row_gathers"] > 0 and st["demotions"] > 0):
+            raise SystemExit(f"tiered {backend}: the tier states were not reached: {st}")
+        log(f"  tiered {backend}: MATCH, ONE_OF and BETWEEN x 128 bit for bit equal to the "
+            f"untiered engine cold, warm and churned; tier {out['bits'][backend]}")
+        del tiered, refs
+
+    # cache_sweep's traffic: untiered, tiered at hot 0 and N/8, N/8 + cache
+    params = SearchParams(k=10, backend="graph")
+
+    def registry():
+        return TenantRegistry(default_policy=TenantPolicy(params=params))
+
+    def served(engine, trace, cache=None):
+        """A warm pass (plans compiled, the tier promoted), then the counted
+        pass: (responses, snapshot, service s)."""
+        serve_loop(engine, trace, registry(), window_ms=SERVE_WINDOW_MS, buckets=TIER_BUCKETS,
+                   result_cache=cache)
+        if cache is not None:
+            cache.clear()
+            cache.reset_counters()
+        if getattr(engine, "tier", None) is not None:
+            engine.tier.reset_counters()
+        stats = ServerStats(engine)
+        resp, stats = serve_loop(engine, trace, registry(), window_ms=SERVE_WINDOW_MS,
+                                 buckets=TIER_BUCKETS, stats=stats, result_cache=cache)
+        sync()
+        return resp, stats.snapshot(), stats.service_wall_s
+
+    traces = {}
+    for skew in TIER_SKEWS:
+        trace, info = zipf_trace(ds, skew, seed)
+        traces[skew] = trace
+        row = out["serve"][str(skew)] = dict(trace=info)
+        want = None
+        for variant in ("untiered", "hot0", "hot_n8", "hot_n8_cache"):
+            engine, cache = eng, None
+            if variant != "untiered":
+                engine = TieredEngine(eng, hot_rows=0 if variant == "hot0" else hot,
+                                      epoch_queries=TIER_EPOCH)
+            if variant == "hot_n8_cache":
+                cache = ResultCache(max_entries=4 * TIER_DISTINCT)
+            resp, snap, service_s = served(engine, trace, cache)
+            if not all(isinstance(r, Completed) for r in resp):
+                raise SystemExit(f"tiered serve {variant} s={skew}: not every response is Completed")
+            if want is None:
+                want = resp
+            for i, (a, b) in enumerate(zip(want, resp)):
+                if not (np.array_equal(a.ids, b.ids) and np.array_equal(a.dists, b.dists)):
+                    raise SystemExit(f"tiered serve {variant} s={skew}: request {i} differs from "
+                                     f"the untiered stream's answer")
+            tier, rc = snap.get("tier", {}), snap.get("result_cache", {})
+            lat = snap["latency_ms"]
+            row[variant] = r = dict(
+                service_qps=snap["service_qps"], p50_ms=lat["p50"], p99_ms=lat["p99"],
+                batches=snap["batches"], service_s=service_s,
+                tier_hit_rate=tier.get("tier_hit_rate"), promotions=tier.get("promotions"),
+                demotions=tier.get("demotions"), cache_hit_rate=rc.get("hit_rate"),
+                cache_served=rc.get("served"),
+            )
+            log(f"  tiered serve s={skew} {variant:12s}: service QPS {r['service_qps']:.1f}, p50 "
+                f"{r['p50_ms']:.3f} p99 {r['p99_ms']:.3f} ms, {r['batches']} batches; tier hit "
+                f"rate {r['tier_hit_rate']}, promotions {r['promotions']}; cache hit rate "
+                f"{r['cache_hit_rate']} ({r['cache_served']} served from the cache)")
+            if variant == "hot_n8" and skew == TIER_SKEWS[-1]:
+                out["gather_ms"] = gather_host_ms(dev, engine.tier, seed)
+            del engine
+        log(f"    trace s={skew}: {info}; every answer of every variant equals the untiered "
+            f"stream's bit for bit")
+
+    if peng is not None:
+        out["partitioned"] = tiered_partitioned(peng, part_params, cap, traces[TIER_SKEWS[-1]],
+                                                registry, sync)
+    return out
+
+
+def gather_host_ms(dev, tier, seed: int, reps: int = 20) -> dict:
+    """HotTier.gather of an all-hot and an all-cold bucket-8 rerank
+    (8 x TIER_RERANK ids), host clock up to a sync: medians of ``reps``."""
+    rng = np.random.default_rng(seed)
+    shape = (8, TIER_RERANK)
+    hot_ids = rng.choice(tier.hot_ids, size=shape)
+    cold = np.flatnonzero(tier.slot_of < 0)
+    cold_ids = rng.choice(cold, size=shape)
+    out = {}
+    for label, ids in (("all_hot", hot_ids), ("all_cold", cold_ids)):
+        times = []
+        for _ in range(reps + 1):  # the first warms up
+            t0 = time.perf_counter()
+            tier.gather(ids)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[label] = statistics.median(times[1:])
+    log(f"  rerank gather of a bucket-8 batch ({shape[0]} x {shape[1]} rows), host clock to a "
+        f"sync, median of {reps}: all hot {out['all_hot']:.4f} ms, all cold "
+        f"{out['all_cold']:.4f} ms")
+    return out
+
+
+def tiered_partitioned(peng, part_params, cap: int, trace, registry, sync) -> dict:
+    """The skew-1.2 trace on the partitioned engine under its cap, untiered
+    and through a TieredEngine that pins hot partitions (budget cap / 2),
+    each after a warm pass: answers bit for bit equal, pinned rows under the
+    cap, store loads and service ms a search (a served batch)."""
+    from repro_torch.cache import TieredEngine
+    from repro_torch.serve import ServerStats, TenantPolicy, TenantRegistry, serve_loop
+
+    store = peng.index.store
+    params = dataclasses.replace(part_params, backend="partitioned")
+
+    def reg():
+        return TenantRegistry(default_policy=TenantPolicy(params=params))
+
+    out, answers = {}, {}
+    for variant in ("untiered", "pinned"):
+        engine = peng
+        store.evict_all()
+        if variant == "pinned":
+            engine = TieredEngine(peng, hot_rows=cap // 2, epoch_queries=TIER_EPOCH)
+        serve_loop(engine, trace, reg(), window_ms=SERVE_WINDOW_MS, buckets=TIER_BUCKETS)
+        store.reset_counters()
+        stats = ServerStats(engine)
+        resp, stats = serve_loop(engine, trace, reg(), window_ms=SERVE_WINDOW_MS,
+                                 buckets=TIER_BUCKETS, stats=stats)
+        sync()
+        st = store.stats()
+        snap = stats.snapshot()
+        answers[variant] = resp
+        out[variant] = r = dict(
+            batches=snap["batches"], loads=st["loads"], hits=st["hits"],
+            loads_per_search=st["loads"] / snap["batches"],
+            ms_per_search=stats.service_wall_s * 1e3 / snap["batches"],
+            p50_ms=snap["latency_ms"]["p50"], p99_ms=snap["latency_ms"]["p99"],
+            pinned_partitions=st["pinned_partitions"], pinned_rows=st["pinned_rows"],
+            peak_resident_rows=st["peak_resident_rows"],
+        )
+        log(f"  tiered partitioned {variant:8s} (nprobe={params.nprobe}, cap {cap} rows): "
+            f"{r['loads_per_search']:.2f} loads and {r['ms_per_search']:.3f} ms a search over "
+            f"{r['batches']} searches, p50 {r['p50_ms']:.3f} p99 {r['p99_ms']:.3f} ms; "
+            f"{r['pinned_partitions']} partitions pinned ({r['pinned_rows']} rows), peak "
+            f"{r['peak_resident_rows']} resident")
+    store.unpin()
+    for i, (a, b) in enumerate(zip(answers["untiered"], answers["pinned"])):
+        if not (np.array_equal(a.ids, b.ids) and np.array_equal(a.dists, b.dists)):
+            raise SystemExit(f"tiered partitioned: request {i} differs from the untiered answer")
+    pinned = out["pinned"]
+    if not 0 < pinned["pinned_rows"] <= cap:
+        raise SystemExit(f"tiered partitioned: {pinned['pinned_rows']} pinned rows, cap {cap}")
+    log("    every pinned answer equals the untiered engine's bit for bit")
+    return out
+
+
+def check_tiered_kernels(dev, ds, eng, seed: int) -> dict:
+    """gather_auto at the tiered rerank: B x TIER_RERANK rows staged in a
+    buffer of their own and scored through ``routing.staged_operands``
+    (the pool's last 3 slots INVALID), in the index's metric, at each of
+    TIER_STAGED_BATCHES: bit for bit equal to the same call over the whole
+    row table, against its plain version, timed beside its bound. Then at a
+    serve bucket-8 graph hop (TIER_HOP8 over N rows, 10% INVALID)."""
+    from repro_torch.core import to_tensor
+    from repro_torch.core.routing import staged_operands
+    from repro_torch.kernels.gather_auto.ops import gather_auto, gather_auto_ref
+
+    rng = np.random.default_rng(seed)
+    idx = eng.index
+    n, m = (int(x) for x in idx.features.shape)
+    l = int(idx.attrs.shape[1])
+    alpha, mode = idx.metric_cfg.alpha, idx.metric_cfg.mode
+    q = predicate_batches(ds)["MATCH"]
+    qv_all = to_tensor(q.vectors, torch.float32, dev)
+    qa_all = to_tensor(q.attrs, torch.int32, dev)
+    report = {}
+
+    def case(label, shape, qv, qa, v, a, ids, direct=None):
+        got = gather_auto(qv, qa, v, a, ids, alpha, mode)
+        want = gather_auto_ref(qv, qa, v, a, ids, alpha, mode)
+        err = (got.double() - want.double()).abs()
+        ratio = float((err / (GATHER_RTOL * want.double().abs() + 1e-6)).max())
+        valid = ids[ids >= 0]
+        b, c = ids.shape
+        rows = int(torch.unique(valid).numel())
+        bound_ms, bound_by = bound(rows * (m + l) * 4 + b * c * 4 * 2 + b * (m + 2 * l) * 4,
+                                   int(valid.numel()) * (3 * m + 4 * l + 4))
+        r = report[label] = dict(
+            shape=shape, max_abs_err=float(err.max()), worst_err_over_tol=ratio,
+            ms=cuda_ms(lambda: gather_auto(qv, qa, v, a, ids, alpha, mode)),
+            device_ms=device_ms(lambda: gather_auto(qv, qa, v, a, ids, alpha, mode)),
+            plain_ms=cuda_ms(lambda: gather_auto_ref(qv, qa, v, a, ids, alpha, mode), reps=5),
+            library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+        )
+        if direct is not None:
+            r["bitwise_equal_to_the_row_table"] = bool(torch.equal(got, direct))
+        log(f"  tiered {label} {shape}: kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f} ms), "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+            f"max|err| {r['max_abs_err']:.3e}, worst err/tol {ratio:.3f}"
+            + (f"; equal to the call over the row table bit for bit: "
+               f"{r['bitwise_equal_to_the_row_table']}" if direct is not None else ""))
+        if ratio > 1.0:
+            raise SystemExit(f"tiered {label}: gather_auto disagrees with its plain version")
+        if direct is not None and not r["bitwise_equal_to_the_row_table"]:
+            raise SystemExit(f"tiered {label}: gather_auto over the staged rows differs from "
+                             f"the same call over the row table")
+
+    for b in TIER_STAGED_BATCHES:
+        qv, qa = qv_all[:b].contiguous(), qa_all[:b].contiguous()
+        r_np = rng.integers(0, n, (b, TIER_RERANK)).astype(np.int32)
+        r_np[:, -3:] = -1
+        r_ids = to_tensor(r_np, torch.int32, dev)
+        cv = idx.features[r_ids.clamp_min(0).long()]  # the rows in a buffer of their own
+        direct = gather_auto(qv, qa, idx.features, idx.attrs, r_ids, alpha, mode)
+        case(f"rerank_b{b}", f"staged rerank B={b} R={TIER_RERANK} M={m} L={l} {mode}", qv, qa,
+             *staged_operands(cv, idx.attrs, r_ids), direct=direct)
+    b, c = TIER_HOP8
+    cand_np = rng.integers(0, n, (b, c)).astype(np.int32)
+    cand_np[rng.random((b, c)) < 0.1] = -1
+    case("serve_bucket8_hop", f"serve bucket-8 hop B={b} C={c} N={n} M={m} L={l} {mode}",
+         qv_all[:b].contiguous(), qa_all[:b].contiguous(), idx.features, idx.attrs,
+         to_tensor(cand_np, torch.int32, dev))
+    return report
+
+
 def fused_err(got, want, qv, qa, xv, xa, alpha: float, mode: str) -> tuple[float, float]:
     """(max |err|, worst err/tol) of fused_auto against its plain version,
     tol = (1e-5·(‖q‖² + ‖x‖²) + 1e-6)·pen² + 1e-6·|ref| with pen² the
@@ -2472,6 +2802,14 @@ def main(argv=None) -> int:
         part_out["step_s"] = time.perf_counter() - t0
         log(f"  partitioned step: {part_out['step_s']:.2f} s")
         kern["partition_probe"] = check_partition_probe(dev, peng, part_q, part_params)
+        log("[4] tiered: TieredEngine over the pq engine, then over the partitioned engine")
+        t0 = time.perf_counter()
+        tier_out, tier_launches = drive(
+            run_tiered_path, ("gather_auto", "adc_scan"), dev, ds, pq_eng, peng, part_params,
+            part_out["cap_rows"], args.seed)
+        tier_out["step_s"] = time.perf_counter() - t0
+        log(f"  tiered step: {tier_out['step_s']:.2f} s")
+        kern["tiered"] = check_tiered_kernels(dev, ds, pq_eng, args.seed)
         # last: searches timed after the profiler run slower; not counted
         q = predicate_batches(ds)["MATCH"]
         profiles = {f"{tag}/{b}": profile_search(e, q, SearchParams(k=10, backend=b))
@@ -2526,7 +2864,7 @@ def main(argv=None) -> int:
     (recsys_out, calls), recsys_launches = drive(
         run_recsys_path, ("fm_interaction", "fused_auto"), dev, fm_cfg, fm_params, args.seed)
     launches = {k: exact_launches[k] + serve_launches[k] + quant_launches[k] + part_launches[k]
-                + mut_launches[k] + recsys_launches[k] for k in wrappers}
+                + tier_launches[k] + mut_launches[k] + recsys_launches[k] for k in wrappers}
     profiles.update({f"recsys/{label}": profile_call(label, fn) for label, fn in calls.items()})
     del fm_params, calls
     torch.cuda.empty_cache()
@@ -2570,18 +2908,20 @@ def main(argv=None) -> int:
          **({"partition_probe": kern["partition_probe"][name]}
             if name in kern["partition_probe"] else {}),
          **({{"fused_auto": "delta_scan", "gather_auto": "link_hop"}[name]:
-             kern["mutable"][name]} if name in kern["mutable"] else {})}
+             kern["mutable"][name]} if name in kern["mutable"] else {}),
+         **({"tiered": kern["tiered"]} if name == "gather_auto" else {})}
         for name, (src, rep) in sources.items()
     ]}
     log("[6] summary " + json.dumps({"n": args.n, "main_path": main_out, "serve": serve_out,
                                      "quantized": quant_out, "partitioned": part_out,
-                                     "mutable": mut_out,
+                                     "tiered": tier_out, "mutable": mut_out,
                                      "recsys": recsys_out, "recsys_cut_vocab": recsys_small,
                                      "profiles": profiles, "small_input": small,
                                      "launches": {"exact": exact_launches,
                                                   "serve": serve_launches,
                                                   "quantized": quant_launches,
                                                   "partitioned": part_launches,
+                                                  "tiered": tier_launches,
                                                   "mutable": mut_launches,
                                                   "recsys": recsys_launches},
                                      "gather_descent_block": kern["gather_auto"]["descent_block"],

@@ -193,10 +193,13 @@ class BruteForceSearcher:
             sv2, admissible_matrix(queries, idx.attrs), params.k, full_evals=idx.features.shape[0]
         )
 
-    def _adc_two_stage(self, engine, queries, qv, qa, params):
+    def _adc_two_stage(self, engine, queries, qv, qa, params, gather_rows=None):
         """ADC code scan → hard filter → exact rerank of the pool head.
         ``rerank_size`` bounds the exact stage as in the traversal path
-        (0 → the whole pool)."""
+        (0 → the whole pool). ``gather_rows`` maps the (B, P) candidates to
+        their (B, P, M) f32 rows (the hot/cold tier, ``repro_torch.cache``);
+        they are then scored by the same kernel call over a staged table
+        (``routing.staged_operands``). None reads ``idx.features``."""
         idx = engine.index
         store = idx.quant
         scores = adc_scan(
@@ -207,7 +210,11 @@ class BruteForceSearcher:
         pool = min(max(params.rerank_size or pool, params.k), pool)
         code_sq, cand = smallest_k(scores.masked_fill(~admissible_matrix(queries, idx.attrs), INF), pool)
         cand = cand.to(torch.int32)
-        rd = gather_auto(qv, qa, idx.features, idx.attrs, cand, mode="l2")
+        if gather_rows is None:
+            rd = gather_auto(qv, qa, idx.features, idx.attrs, cand, mode="l2")
+        else:
+            rows = routing_mod.staged_operands(gather_rows(cand), idx.attrs, cand)
+            rd = gather_auto(qv, qa, *rows, mode="l2")
         rd = rd.masked_fill(code_sq >= INF / 2, INF)
         res = _filtered_topk(rd, torch.ones_like(rd, dtype=torch.bool), params.k,
                              full_evals=pool, ids=cand)

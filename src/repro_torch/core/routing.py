@@ -406,18 +406,41 @@ def emit_topk(
     Either is optionally hard-filtered."""
     b = state.r_ids.shape[0]
     dev = state.r_ids.device
-    if cfg.quant_mode == "none":
-        out_ids = state.r_ids[:, : cfg.k]
-        out_sq = state.r_d[:, : cfg.k]
-        n_dist_evals = state.evals
-        n_code_evals = torch.zeros((b,), dtype=torch.int32, device=dev)
-    else:
+    if cfg.quant_mode != "none":
         r_ids = state.r_ids[:, : cfg.effective_rerank]
         rd = score_exact(db_v, db_a, r_ids, qv, qa, metric_cfg, mask)
-        out_sq, take = gops.smallest_k(rd, cfg.k)
-        out_ids = torch.where(out_sq < INF / 2, r_ids.gather(1, take), INVALID)
-        n_dist_evals = (r_ids >= 0).sum(1, dtype=torch.int32)
-        n_code_evals = state.evals
+        return _emit_reranked(rd, r_ids, db_a, qa, cfg, mask, state.evals, state.hops)
+    return _emit(
+        state.r_ids[:, : cfg.k], state.r_d[:, : cfg.k], db_a, qa, cfg, mask,
+        n_dist_evals=state.evals,
+        n_code_evals=torch.zeros((b,), dtype=torch.int32, device=dev),
+        hops=state.hops,
+    )
+
+
+def _emit_reranked(
+    rd: Tensor,  # (B, R) exact fused sqdists of the pool head (INF on INVALID)
+    r_ids: Tensor,  # (B, R) pool-head ids
+    db_a: Tensor,
+    qa: Tensor,
+    cfg: RoutingConfig,
+    mask: Optional[Tensor],
+    evals: Optional[Tensor],
+    hops: int,
+) -> SearchResult:
+    """The quantized tail of stage 4: the top k of the re-scored head."""
+    out_sq, take = gops.smallest_k(rd, cfg.k)
+    out_ids = torch.where(out_sq < INF / 2, r_ids.gather(1, take), INVALID)
+    if evals is None:
+        evals = torch.zeros((r_ids.shape[0],), dtype=torch.int32, device=r_ids.device)
+    return _emit(
+        out_ids, out_sq, db_a, qa, cfg, mask,
+        n_dist_evals=(r_ids >= 0).sum(1, dtype=torch.int32), n_code_evals=evals, hops=hops,
+    )
+
+
+def _emit(out_ids, out_sq, db_a, qa, cfg, mask, n_dist_evals, n_code_evals, hops) -> SearchResult:
+    """The emitted top k, hard-filtered under ``enforce_equality``."""
     if cfg.enforce_equality:
         out_ids, out_sq = enforce_filter(out_ids, out_sq, db_a, qa, mask)
     return SearchResult(
@@ -425,9 +448,77 @@ def emit_topk(
         dists=torch.sqrt(torch.clamp_min(out_sq, 0.0)),
         sqdists=out_sq,
         n_dist_evals=n_dist_evals,
-        n_hops=torch.tensor(state.hops, dtype=torch.int32, device=dev),
+        n_hops=torch.tensor(int(hops), dtype=torch.int32, device=out_ids.device),
         n_code_evals=n_code_evals,
     )
+
+
+def search_pool(
+    db_a: Tensor,
+    graph: Tensor,
+    qv: Tensor,
+    qa: Tensor,
+    entry_ids: Tensor,
+    metric_cfg: MetricConfig,
+    cfg: RoutingConfig,
+    n_nodes: int,
+    mask: Optional[Tensor] = None,
+    quant: tuple = (),
+) -> tuple[Tensor, Tensor, int]:
+    """Stages 1–3 only, for callers that source the rerank rows themselves
+    (the hot/cold tier in ``repro_torch.cache``): traverse over compressed
+    codes and return ``(r_ids, evals, hops)``, ``r_ids`` the pool head
+    trimmed to ``cfg.effective_rerank``.
+
+    A quantized traversal never reads the f32 rows (the codes carry the
+    feature term, see ``_score_candidates``), so none are taken; a (1, M)
+    dummy fills the stages' row-table operand."""
+    if cfg.quant_mode == "none":
+        raise ValueError("search_pool requires a quantized traversal codec")
+    dummy_v = torch.zeros((1, qv.shape[1]), dtype=torch.float32, device=qv.device)
+    state = traverse_pool(
+        dummy_v, db_a, graph, qv, qa, entry_ids, metric_cfg, cfg, n_nodes, mask, quant
+    )
+    return state.r_ids[:, : cfg.effective_rerank], state.evals, state.hops
+
+
+def staged_operands(cv: Tensor, db_a: Tensor, r_ids: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    """The operands that score pre-gathered rows through ``gather_auto``:
+    ``cv`` (B, R, M) viewed as a (B·R, M) row table, the rows' attributes
+    gathered into a (B·R, L) table beside it, and ids ``arange(B·R)`` in
+    the (B, R) layout of ``r_ids`` with INVALID kept where ``r_ids < 0``.
+    Each (b, r) pair then reads the same values at the same (b, c) place
+    as a gather from the full table would, so the kernel returns the same
+    bits."""
+    b, r = r_ids.shape
+    ca = gops.gather_rows(db_a, r_ids).reshape(b * r, db_a.shape[1])
+    ids = torch.arange(b * r, dtype=torch.int32, device=r_ids.device).view(b, r)
+    ids = torch.where(r_ids < 0, INVALID, ids)
+    return cv.reshape(b * r, cv.shape[-1]).contiguous(), ca, ids
+
+
+def rerank_gathered(
+    cv: Tensor,  # (B, R, M) candidate f32 rows, pre-gathered (INVALID → row 0)
+    db_a: Tensor,
+    r_ids: Tensor,  # (B, R) pool-head ids (INVALID-padded)
+    qv: Tensor,
+    qa: Tensor,
+    metric_cfg: MetricConfig,
+    cfg: RoutingConfig,
+    mask: Optional[Tensor] = None,
+    evals: Optional[Tensor] = None,
+    hops: int = 0,
+) -> SearchResult:
+    """Stage 4 for pre-gathered candidates: ``emit_topk``'s quantized
+    branch with the f32 gather replaced by the caller's ``cv`` (the tier
+    takes hot rows from a device slice and cold rows from the host store,
+    ``repro_torch.cache.HotTier``). The rows are scored by the same
+    ``gather_auto`` call ``score_exact`` makes (``staged_operands``), so
+    rows equal to ``idx.features[r_ids]`` give bit-identical ids and
+    distances."""
+    v_tab, a_tab, ids = staged_operands(cv, db_a, r_ids)
+    rd = score_exact(v_tab, a_tab, ids, qv, qa, metric_cfg, mask)
+    return _emit_reranked(rd, r_ids, db_a, qa, cfg, mask, evals, hops)
 
 
 def make_entry_ids(

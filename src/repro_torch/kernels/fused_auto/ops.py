@@ -10,6 +10,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.graph_ops import smallest_k
 from repro_torch.kernels import build
 from repro_torch.kernels.common import check_operands, inv_alpha, mode_code, split_targets
 from repro_torch.kernels.fused_auto.ref import fused_auto_ref
@@ -67,4 +68,20 @@ def fused_auto(
 
 fused_auto.launches = 0
 
-__all__ = ["MAX_ATTRS", "fused_auto", "fused_auto_ref"]
+
+def fused_auto_topk(
+    qv: torch.Tensor,
+    qa: torch.Tensor,
+    xv: torch.Tensor,
+    xa: torch.Tensor,
+    k: int,
+    alpha: float = 1.0,
+    mode: str = "auto",
+    mask: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact hybrid top-k over a candidate set through the fused scorer:
+    (sq-dists, ids), ascending, ties to the lower id."""
+    return smallest_k(fused_auto(qv, qa, xv, xa, alpha=alpha, mode=mode, mask=mask), k)
+
+
+__all__ = ["MAX_ATTRS", "fused_auto", "fused_auto_ref", "fused_auto_topk"]

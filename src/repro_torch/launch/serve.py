@@ -23,9 +23,12 @@ admission (``--write-rate``), and background merges that never block
 serving (``--max-delta-rows``) — and reports the write, merge and delta
 metrics beside the read-side ones.
 
-``--hot-rows`` needs hot/cold tiering, which is not ported yet (ROADMAP
-queue 1, item 9): set to anything but 0 it exits with an error before
-anything is built.
+With ``--hot-rows H`` the engine is wrapped in a ``TieredEngine``: the H
+most frequently returned rows stay full-precision on the device and a
+quantized engine's rerank gathers the cold tail from the host (answers
+bit-identical to the untiered engine); the run prints a ``tier:`` line.
+It is incompatible with ``--writes`` (the launcher says so and serves
+untiered).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --n 4000 --requests 128
@@ -37,6 +40,8 @@ Examples:
       --residency-rows 65536
   PYTHONPATH=src python -m repro_torch.launch.serve --n 20000 --writes 2000 \\
       --write-rate 500 --max-delta-rows 1024
+  PYTHONPATH=src python -m repro_torch.launch.serve --n 20000 --quant pq \\
+      --hot-rows 2500
   PYTHONPATH=src python -m repro_torch.launch.serve --n 20000 \\
       --metrics-port 9100 --trace-sample 16 --trace-out trace.json
 """
@@ -49,15 +54,10 @@ import time
 import numpy as np
 import torch
 
-#: reference options whose modules are not ported yet: flag → ROADMAP item
-UNPORTED = {
-    "hot_rows": "hot/cold tiering (ROADMAP queue 1, item 9)",
-}
-
 
 def main(argv=None) -> None:
     from repro_torch.api import MATCH, Engine, Query, SearchParams
-    from repro_torch.cache import ResultCache
+    from repro_torch.cache import ResultCache, TieredEngine
     from repro_torch.core import resolve_device, to_tensor
     from repro_torch.core.baselines import brute_force_hybrid, recall_at_k
     from repro_torch.core.help_graph import HelpConfig
@@ -112,8 +112,10 @@ def main(argv=None) -> None:
                     help="compaction trigger: merge when the delta holds "
                          "this many rows")
     ap.add_argument("--hot-rows", type=int, default=0,
-                    help="hot/cold tiering budget; not ported yet (ROADMAP "
-                         "item 9): > 0 exits with an error")
+                    help="hot/cold tiering: keep the top-frequency rows "
+                         "full-precision on device and rerank the cold "
+                         "tail from host (0 = untiered; incompatible "
+                         "with --writes)")
     ap.add_argument("--result-cache", type=int, default=0,
                     help="serve-layer result cache capacity in entries "
                          "(0 = off); hits return the cached top-k payload "
@@ -133,10 +135,8 @@ def main(argv=None) -> None:
                          "(chrome://tracing / Perfetto); implies "
                          "--trace-sample 1 unless set explicitly")
     args = ap.parse_args(argv)
-    for flag, what in UNPORTED.items():
-        if getattr(args, flag) != ap.get_default(flag):
-            ap.error(f"--{flag.replace('_', '-')} needs {what}, "
-                     "which is not ported yet")
+    if args.hot_rows < 0:
+        ap.error("--hot-rows must be nonnegative (0 = untiered)")
     dev = resolve_device(args.device)
     buckets = tuple(int(b) for b in args.buckets.split(","))
     n_writes = max(0, min(args.writes, args.n // 2))
@@ -204,6 +204,20 @@ def main(argv=None) -> None:
         for i in range(args.requests)
     ]
     reqs = list(read_reqs)
+
+    hot_rows = args.hot_rows
+    if hot_rows and n_writes:
+        # merges renumber rows under the frequency tracker, so the tier
+        # only wraps an immutable engine (TieredEngine rejects the mix)
+        print("--hot-rows is incompatible with --writes; serving untiered")
+        hot_rows = 0
+    if hot_rows:
+        eng = TieredEngine(
+            eng, hot_rows=hot_rows,
+            epoch_queries=min(512, max(64, args.requests // 4)),
+        )
+        print(f"hot/cold tiering: top {hot_rows} rows full-precision on "
+              "device, cold tail reranked from host")
 
     deleted: list = []
     if n_writes:
@@ -284,6 +298,12 @@ def main(argv=None) -> None:
     for t, c in snap["per_tenant"].items():
         print(f"    {t}: {c['completed']}/{c['submitted']} served "
               f"({c['qps']:.0f} qps, {c['rejected']} shed)")
+    if "tier" in snap:
+        t = snap["tier"]
+        print(f"  tier: hit rate {t.get('tier_hit_rate', 0.0):.2f} "
+              f"(hot budget {t['hot_rows_budget']} rows, "
+              f"{t.get('promotions', 0)} promotions, "
+              f"{t.get('demotions', 0)} demotions)")
     if getattr(eng, "is_partitioned", False):  # a MutableEngine never is
         store = eng.index.store.stats()
         print(f"  segment store: {store['loads']} loads, {store['hits']} hits, "

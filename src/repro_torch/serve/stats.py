@@ -7,15 +7,15 @@ streaming histograms (``serve_queue_ms`` / ``serve_service_ms`` /
 long-running server's memory does not grow with every completion), and
 every other counter owner in the stack — the executor's plan cache, the
 compiled-plan counter, a mutable engine's delta/WAL/merge gauges
-(``delta``), a partitioned engine's ``SegmentStore`` (``segment_store``)
-and the serve-layer ``ResultCache`` — is registered as a pull-based
+(``delta``), a tiered engine's hot/cold tier and tracker (``tier``), a
+partitioned engine's ``SegmentStore`` (``segment_store``) and the
+serve-layer ``ResultCache`` — is registered as a pull-based
 *provider* on the same registry, so one scrape surface (``/metrics``,
 ``/metrics.json`` via ``repro_torch.obs.MetricsServer``) sees them all with
 zero new work on any hot path. The port has no jit:
 ``core.routing.trace_count`` counts compiled search plans, and the
 ``retraces`` / ``jit_hit_rate`` keys read it where the reference reads its
-jit trace count. The reference's tier provider comes with the tiered
-engine (ROADMAP queue 1, item 9).
+jit trace count.
 
 Latency is decomposed per request into ``queue`` (waiting for the
 micro-batch window — the serving loop's clock domain) and ``service`` (measured
@@ -117,6 +117,9 @@ class ServerStats:
         write_stats = getattr(eng, "write_stats", None)
         if write_stats is not None:  # MutableEngine: delta/WAL/merge gauges
             reg.register_provider("delta", write_stats)
+        tier_stats = getattr(eng, "tier_stats", None)
+        if tier_stats is not None:  # TieredEngine: hot/cold + tracker
+            reg.register_provider("tier", tier_stats)
         store = getattr(getattr(eng, "index", None), "store", None)
         if store is not None:  # partitioned: shard residency LRU
             reg.register_provider("segment_store", store.stats)
@@ -284,6 +287,10 @@ class ServerStats:
                 **self._result_cache.stats(),
                 "served": cache_served,
             }
+        # hot/cold tier counters from a tiered engine (repro_torch.cache)
+        tier_stats = getattr(self._engine, "tier_stats", None)
+        if tier_stats is not None:
+            out["tier"] = tier_stats()
         # cache/trace rates from host counters (deltas vs construction time)
         retraces = routing_mod.trace_count() - self._traces0
         out["retraces"] = retraces

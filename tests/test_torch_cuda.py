@@ -669,3 +669,89 @@ def test_merge_releases_the_old_index(cuda_dev):
     grown = torch.cuda.memory_allocated() - base
     row_bytes = index_bytes // 20_000
     assert grown < 300 * row_bytes + index_bytes // 4, (grown, index_bytes)
+
+
+# ---------------------------------------------------------------------------
+# hot/cold tiering on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def tiered_case():
+    """A float sift-profile corpus at n = 20,000 on the card with a graph
+    and a pq codec (S = 16), and 64 queries per predicate kind."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
+    ds = make_hybrid_dataset(n=20_000, n_queries=64, profile="sift", seed=6)
+    eng = Engine.build(ds.features, ds.attrs, quant_cfg=QuantConfig("pq", pq_subspaces=16),
+                       device="cuda")
+    return ds, eng
+
+
+@pytest.mark.parametrize("enforce", [False, True])
+@pytest.mark.parametrize("kind", ["match", "one_of", "between"])
+def test_rerank_gathered_equals_emit_topk_on_card(tiered_case, kind, enforce):
+    """The pool head's rows staged in a buffer of their own (half from a
+    device slice, half copied from the host) and scored by
+    ``rerank_gathered`` give the bits ``emit_topk`` gives over
+    ``idx.features``: the kernel's per-pair sum does not depend on where a
+    row sits."""
+    from repro_torch.cache import HotTier
+    from repro_torch.core import routing
+
+    ds, eng = tiered_case
+    idx = eng.index
+    q = _part_batches(ds)[kind]
+    dev = idx.features.device
+    qv = torch.from_numpy(q.vectors).to(dev)
+    qa = torch.from_numpy(np.ascontiguousarray(q.targets)).to(dev)
+    cfg = routing.RoutingConfig(k=10, pool_size=40, quant_mode="pq", enforce_equality=enforce)
+    entry = routing.make_entry_ids(idx.features.shape[0], qv.shape[0], 40, 0, device=dev)
+    r_ids, evals, hops = routing.search_pool(idx.attrs, idx.graph, qv, qa, entry, idx.metric_cfg,
+                                             cfg, idx.features.shape[0], None,
+                                             idx.quant.routing_operand(qv))
+    tier = HotTier(idx.features.cpu().numpy(), hot_rows=10_000, device=dev)
+    counts = np.zeros(idx.features.shape[0])
+    counts[r_ids.cpu().numpy()[:, ::2].ravel().clip(0)] = 1.0
+    tier.promote(counts)
+    cv = tier.gather(r_ids.cpu().numpy())
+    st = tier.stats()
+    assert st["hot_row_hits"] > 0 and st["cold_row_gathers"] > 0
+    g0 = gather_auto.launches
+    got = routing.rerank_gathered(cv, idx.attrs, r_ids, qv, qa, idx.metric_cfg, cfg, None,
+                                  evals, hops)
+    assert gather_auto.launches == g0 + 1
+    want = routing.search(idx.features, idx.attrs, idx.graph, qv, qa, idx.metric_cfg, cfg,
+                          entry_ids=entry, quant=idx.quant)
+    for field in ("ids", "dists", "sqdists", "n_dist_evals", "n_code_evals"):
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+
+
+@pytest.mark.parametrize("backend", ["graph", "brute"])
+@pytest.mark.parametrize("codec", ["pq", "pq4"])
+def test_tiered_engine_on_card_equals_untiered(tiered_case, codec, backend):
+    """n = 20,000: a TieredEngine (the brute backend through
+    ``_TieredBruteSearcher``, the graph backend through ``search_pool`` and
+    ``rerank_gathered``) equals the untiered engine bit for bit cold, warm
+    and churned, on the four predicate kinds."""
+    from repro_torch.cache import TieredEngine
+
+    ds, eng = tiered_case
+    if codec == "pq4":
+        store = QuantizedVectors.build(eng.index.features, QuantConfig("pq4", pq_subspaces=16))
+        eng = Engine(dataclasses.replace(eng.index, quant=store))
+    params = SearchParams(k=10, backend=backend)
+    batches = _part_batches(ds)
+    refs = {kind: eng.search(q, params) for kind, q in batches.items()}
+    tiered = TieredEngine(eng, hot_rows=2_500, epoch_queries=64)
+    for state in ("cold", "warm", "churned"):
+        if state == "churned":
+            tiered.tracker.observe(np.tile(np.arange(5_000, 7_000), 4))
+            tiered.refresh_tier()
+        for kind, q in batches.items():
+            got = tiered.search(q, params)
+            for field in ("ids", "dists", "sqdists", "n_dist_evals", "n_code_evals"):
+                assert torch.equal(getattr(got, field), getattr(refs[kind], field)), (
+                    state, kind, field)
+    st = tiered.tier_stats()
+    assert st["hot_row_hits"] > 0 and st["cold_row_gathers"] > 0 and st["demotions"] > 0

@@ -460,13 +460,15 @@ def test_cli_serves_writes_on_the_cpu(capsys, flag, value):
     assert float(out.split("Recall@10=")[1].split()[0]) >= 0.8
 
 
-@pytest.mark.parametrize("flag,item", [("--hot-rows", 9)])
-def test_cli_unported_flags_exit_before_building(capsys, flag, item):
+@pytest.mark.parametrize("flag,value", [pytest.param("--hot-rows", -9, id="--hot-rows-9")])
+def test_cli_unported_flags_exit_before_building(capsys, flag, value):
+    """A flag value the launcher cannot serve (a negative ``--hot-rows``)
+    exits before anything is built."""
     with pytest.raises(SystemExit) as exc:
-        tlaunch.main(["--device", "cpu", flag, "8"])
+        tlaunch.main(["--device", "cpu", flag, str(value)])
     assert exc.value.code != 0
     err = capsys.readouterr()
-    assert f"item {item}" in err.err and "building" not in err.out
+    assert flag in err.err and "building" not in err.out
 
 
 def test_cli_default_device_needs_a_card(monkeypatch):
