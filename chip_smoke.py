@@ -83,6 +83,21 @@ Phases:
      rerank (B = 8 and 128 against 40 staged rows each, equal bit for bit
      to the same call over the row table) and at a serve bucket-8 hop,
      timed beside its bound.
+     Then the sharded step: ShardedStableIndex.build of the same data on a
+     (data=1, model=4) mesh on the one card (250,000 rows a shard), exact
+     and then with the pq codec (S=64), through Engine on the sharded
+     backend: the four predicate classes at B=128 timed beside the flat
+     engine of the same codec (hops, evals, recall@10 against the flat
+     brute oracle), every 16th row equal to its solo search, data=2 equal
+     to data=1, a save and Engine.load round trip equal to the saved
+     engine (codes included), all bit for bit; pq exact evals within the
+     pool; 256 requests of the serve trace through serve_loop with the
+     backend pinned, every 16th equal to its solo search; gather_auto at a
+     shard hop (B=128, C=1280 over 250,000 rows) beside its bound; the
+     exhaustive merge at N=4,096 (pool = shard rows) equal to a brute
+     oracle scored by the same kernel; sharded MATCH recall@10 at
+     N=20,000, exact and pq, on the card within 0.02 of the CPU's; one
+     profiled sharded search.
      Then the mutable step on the exact index, handed over so that the
      merge frees it: a MutableEngine with a WAL; with no writes its
      search equals Engine.search bit for bit; 3,072 inserts (a second
@@ -116,7 +131,7 @@ Phases:
      several batches, then each profiled once; last of all, one more
      Engine.build of phase 4's data under the profiler
   6. a JSON line of every kernel's launches in phases 4 and 5 (the exact,
-     serve, quantized, partitioned, tiered, mutable and recsys paths, each counted
+     serve, quantized, partitioned, tiered, sharded, mutable and recsys paths, each counted
      from 0; a
      kernel of a path that the path never launched fails the run), error
      and times
@@ -258,6 +273,15 @@ TIER_SPACING_S, TIER_BURST, TIER_BUCKETS, TIER_EPOCH = 5e-5, 4.0, (1, 8, 32), 12
 #: gather_auto at the tiered rerank (R rows a query in a staged buffer) at
 #: the batches timed, and at a serve bucket-8 graph hop (B, C)
 TIER_RERANK, TIER_STAGED_BATCHES, TIER_HOP8 = 40, (8, 128), (8, 1280)
+#: phase 4's sharded step: the search cell on a (data=1, model=SHARDS) mesh
+#: on the one card, exact then pq at ADC_S; every SERVE_SOLO_EVERY-th row
+#: of each batch held to its solo search; a save and Engine.load round
+#: trip; the first SHARD_SERVE_REQUESTS of the serve trace. Its checks: the
+#: exhaustive merge at SHARD_EXH_N rows (pool = shard rows) against the
+#: card's brute oracle, and card against CPU at SMALL_N
+SHARDS, SHARD_EXH_N, SHARD_SERVE_REQUESTS = 4, 4096, 256
+#: gather_auto at a shard hop: a refine hop (B, C) over one shard's rows
+SHARD_HOP = (128, 1280)
 
 
 def log(*a):
@@ -2436,6 +2460,270 @@ def check_tiered_kernels(dev, ds, eng, seed: int) -> dict:
     return report
 
 
+def run_sharded_path(dev, ds, eng, pq_eng, seed: int, workdir: str):
+    """Phase 4, sharded: ShardedStableIndex.build on a (data=1, model=4)
+    mesh on the one card, exact then with the pq codec, served through
+    Engine: each predicate class at B = 128 timed beside the flat engine of
+    the same codec, recall@10 against the flat brute oracle, every 16th row
+    against its solo search bit for bit, data=2 against data=1 bit for bit,
+    a save and Engine.load round trip bit for bit, pq rerank evals within
+    the pool; then the first 256 requests of the serve trace through
+    serve_loop with the backend pinned. Returns the results and the exact
+    sharded engine (for ``check_sharded_kernels`` and the profile)."""
+    from repro_torch.api import Engine, QueryBatch, SearchParams
+    from repro_torch.core.baselines import recall_at_k
+    from repro_torch.core.help_graph import HelpConfig
+    from repro_torch.distributed import ShardedStableIndex
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.quant import QuantConfig
+    from repro_torch.serve import Completed, ServerStats, serve_loop
+
+    n = int(ds.features.shape[0])
+    mesh = make_local_mesh(1, SHARDS, devices=[dev])
+    batches = predicate_batches(ds)
+    oracle = {c: eng.search(q, SearchParams(k=10, backend="brute")).ids.cpu()
+              for c, q in batches.items()}
+    flat = {"none": eng, "pq": pq_eng}
+    out = {"mesh": mesh.shape, "shard_rows": n // SHARDS, "codecs": {}}
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+
+    def timed(fn, reps=3):
+        lat = []
+        for _ in range(reps):
+            t1 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t1)
+        return res, statistics.median(lat) * 1e3
+
+    def same(a, b):
+        return torch.equal(a.ids, b.ids) and torch.equal(a.sqdists, b.sqdists)
+
+    for codec in ("none", "pq"):
+        t0 = time.perf_counter()
+        sidx = ShardedStableIndex.build(mesh, ds.features, ds.attrs, eng.index.metric_cfg,
+                                        HelpConfig(), QuantConfig(codec, pq_subspaces=ADC_S))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        by_shard = [r.build_seconds for r in sidx.build_reports]
+        seng = Engine(sidx)
+        row = out["codecs"][codec] = dict(
+            build_s=build_s, build_s_by_shard=by_shard,
+            memory_bytes=torch.cuda.memory_allocated() - mem0, classes={})
+        log(f"  sharded {codec}: built {SHARDS} shards of {n // SHARDS} rows in {build_s:.2f} s "
+            f"(graphs by shard {[round(x, 2) for x in by_shard]} s; codec and copies "
+            f"{build_s - sum(by_shard):.2f} s); device memory +{row['memory_bytes'] / 1e9:.3f} GB")
+        params = SearchParams(k=10)
+        for cname, q in batches.items():
+            plan = seng.plan(q, params)
+            if plan.backend != "sharded":
+                raise SystemExit(f"sharded {codec} {cname}: planned {plan.backend}")
+            res, ms = timed(lambda: seng.search(q, params))
+            check_result(res, n, q.batch_size)
+            fres, flat_ms = timed(lambda: flat[codec].search(q, SearchParams(k=10, backend="graph")))
+            rec = recall_at_k(res.ids.cpu(), oracle[cname], 10)
+            flat_rec = recall_at_k(fres.ids.cpu(), oracle[cname], 10)
+            if codec == "pq" and not bool((res.n_dist_evals <= params.effective_pool).all()):
+                raise SystemExit(f"sharded pq {cname}: a row's exact evals exceed the pool "
+                                 f"{params.effective_pool}: {int(res.n_dist_evals.max())}")
+            for i in range(0, q.batch_size, SERVE_SOLO_EVERY):
+                alone = seng.search(q.take([i]), params)
+                if not (torch.equal(alone.ids[0], res.ids[i])
+                        and torch.equal(alone.sqdists[0], res.sqdists[i])):
+                    raise SystemExit(f"sharded {codec} {cname}: row {i} differs from its query "
+                                     "searched alone")
+            r = row["classes"][cname] = dict(
+                ms=ms, flat_graph_ms=flat_ms, recall_at_10=rec, flat_recall_at_10=flat_rec,
+                hops=int(res.n_hops), flat_hops=int(fres.n_hops),
+                fp_evals=res.mean_dist_evals, code_evals=res.mean_code_evals,
+                flat_fp_evals=fres.mean_dist_evals, flat_code_evals=fres.mean_code_evals)
+            log(f"    {cname:7s} sharded {ms:.2f} ms ({r['hops']} hops over {SHARDS} shards, "
+                f"{r['hops'] / SHARDS:.1f} a shard; fp evals {r['fp_evals']:.1f}, code evals "
+                f"{r['code_evals']:.1f}) recall@10={rec:.4f} | flat graph {flat_ms:.2f} ms "
+                f"({r['flat_hops']} hops, fp evals {r['flat_fp_evals']:.1f}, code evals "
+                f"{r['flat_code_evals']:.1f}) recall@10={flat_rec:.4f}; every "
+                f"{SERVE_SOLO_EVERY}th row equals its solo search bit for bit")
+        q = batches["MATCH"]
+        want = seng.search(q, params)
+        two = Engine(dataclasses.replace(sidx, mesh=make_local_mesh(2, SHARDS, devices=[dev])))
+        got2 = two.search(q, params)
+        if not same(got2, want) or int(got2.n_hops) == 0:
+            raise SystemExit(f"sharded {codec}: data=2 differs from data=1")
+        path = os.path.join(workdir, f"sharded_{codec}")
+        t0 = time.perf_counter()
+        seng.save(path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = Engine.load(path, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        got = back.search(q, params)
+        if not (same(got, want) and torch.equal(got.n_code_evals, want.n_code_evals)
+                and int(got.n_hops) == int(want.n_hops)):
+            raise SystemExit(f"sharded {codec}: the loaded engine's search differs")
+        if codec == "pq" and not torch.equal(back.index.codes, sidx.codes):
+            raise SystemExit("sharded pq: codes differ after save and load")
+        row.update(data2_hops=int(got2.n_hops), data1_hops=int(want.n_hops), save_s=save_s,
+                   load_s=load_s)
+        log(f"  sharded {codec}: data=2 equals data=1 bit for bit (hops {int(got2.n_hops)} vs "
+            f"{int(want.n_hops)}); save {save_s:.2f} s, Engine.load {load_s:.2f} s, the loaded "
+            "search bit for bit")
+        del back, two
+        shutil.rmtree(path, ignore_errors=True)
+        if codec == "none":
+            exact_eng = seng
+        del seng, sidx
+        gc.collect()
+
+    # the first 256 requests of phase 4's trace on the exact sharded engine
+    tenants, trace = serve_trace(ds, seed)
+    trace = trace[:SHARD_SERVE_REQUESTS]
+    params = SearchParams(k=10, backend="sharded")
+    stats = ServerStats(exact_eng)
+    t0 = time.perf_counter()
+    resp, _ = serve_loop(exact_eng, trace, serve_registry(tenants, params),
+                         window_ms=SERVE_WINDOW_MS, buckets=SERVE_BUCKETS, stats=stats)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    snap = stats.snapshot()
+    if not all(isinstance(r, Completed) for r in resp):
+        raise SystemExit(f"sharded serve: not every response is Completed: "
+                         f"{sorted({type(r).__name__ for r in resp})}")
+    for i in range(0, len(resp), SERVE_SOLO_EVERY):
+        alone = exact_eng.search(QueryBatch.from_queries([trace[i][1].query]), params)
+        if not (np.array_equal(alone.ids[0].cpu().numpy(), resp[i].ids)
+                and np.array_equal(alone.dists[0].cpu().numpy(), resp[i].dists)):
+            raise SystemExit(f"sharded serve: request {i} (bucket {resp[i].bucket}) differs "
+                             "from its query searched alone")
+    lat = snap["latency_ms"]
+    out["serve"] = dict(requests=len(resp), p50_ms=lat["p50"], p99_ms=lat["p99"],
+                        service_ms_p99=snap["service_ms_p99"], batches=snap["batches"],
+                        batch_fill_ratio=snap["batch_fill_ratio"], wall_s=wall_s)
+    log(f"  sharded serve: {snap['completed']}/{len(resp)} Completed in {snap['batches']} "
+        f"batches, fill {snap['batch_fill_ratio']:.4f}; end-to-end p50 {lat['p50']:.3f} p99 "
+        f"{lat['p99']:.3f} ms (service p99 {snap['service_ms_p99']:.3f}); {wall_s:.2f} s of wall "
+        f"time; every {SERVE_SOLO_EVERY}th response equals its solo search bit for bit")
+    return out, exact_eng
+
+
+def check_sharded_small(dev, seed: int) -> dict:
+    """The sharded step's checks away from N = 1M: (1) the exhaustive merge
+    at SHARD_EXH_N rows, pool = shard rows, against a brute oracle on the
+    card that scores every row with the same kernel (gather_auto over all
+    ids, then the stable top-k): sqdists bit for bit, ids except at ties;
+    (2) card against CPU at SMALL_N: sharded MATCH recall@10 against the
+    exact oracle, exact and pq, within SMALL_RECALL_GAP."""
+    from repro_torch.api import Engine, QueryBatch, SearchParams
+    from repro_torch.core import to_tensor
+    from repro_torch.core.auto import MetricConfig, sample_stats
+    from repro_torch.core.baselines import brute_force_hybrid, recall_at_k
+    from repro_torch.core.graph_ops import smallest_k
+    from repro_torch.core.help_graph import HelpConfig
+    from repro_torch.core.routing import RoutingConfig
+    from repro_torch.data.synthetic import make_hybrid_dataset
+    from repro_torch.distributed import ShardedStableIndex
+    from repro_torch.kernels.gather_auto.ops import gather_auto
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.quant import QuantConfig
+
+    out = {}
+    ds = make_hybrid_dataset(n=SHARD_EXH_N, n_queries=64, profile="sift", seed=seed)
+    mc = MetricConfig(alpha=sample_stats(ds.features, ds.attrs).alpha)
+    rows = SHARD_EXH_N // SHARDS
+    sidx = ShardedStableIndex.build(make_local_mesh(1, SHARDS, devices=[dev]), ds.features,
+                                    ds.attrs, mc)
+    cfg = RoutingConfig(k=10, pool_size=rows, pioneer_size=16, refine_max_iters=4 * rows)
+    res = sidx.search(ds.query_features, ds.query_attrs, k=10, routing_cfg=cfg)
+    qv = to_tensor(ds.query_features, torch.float32, dev)
+    qa = to_tensor(ds.query_attrs, torch.int32, dev)
+    every = torch.arange(SHARD_EXH_N, dtype=torch.int32, device=dev).expand(len(qv), -1)
+    want_sq, want_ids = smallest_k(gather_auto(
+        qv, qa, to_tensor(ds.features, torch.float32, dev), to_tensor(ds.attrs, torch.int32, dev),
+        every.contiguous(), mc.alpha, mc.mode), 10)
+    got_sq, got_ids, want_sq, want_ids = (x.cpu() for x in (res.sqdists, res.ids, want_sq,
+                                                             want_ids))
+    differ = got_ids != want_ids.to(torch.int32)
+    at_ties = all(bool((want_sq[r] == want_sq[r, p]).sum() > 1)
+                  for r, p in zip(*torch.nonzero(differ, as_tuple=True)))
+    out["exhaustive"] = dict(n=SHARD_EXH_N, pool=rows, ids_differ=int(differ.sum()),
+                             all_at_ties=at_ties, sqdists_equal=bool(torch.equal(got_sq, want_sq)))
+    log(f"  sharded exhaustive merge N={SHARD_EXH_N}, {SHARDS} shards, pool {rows}: sqdists equal "
+        f"the brute oracle's bit for bit: {out['exhaustive']['sqdists_equal']}; "
+        f"{out['exhaustive']['ids_differ']} ids differ, all at ties: {at_ties}")
+    if not (out["exhaustive"]["sqdists_equal"] and at_ties):
+        raise SystemExit("sharded: the exhaustive merge differs from the brute oracle")
+
+    ds = make_hybrid_dataset(n=SMALL_N, n_queries=128, profile="sift", seed=seed)
+    q = QueryBatch.match(ds.query_features, ds.query_attrs)
+    mc = MetricConfig(alpha=sample_stats(ds.features, ds.attrs).alpha)
+    recall = {}
+    for tag, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        mesh = make_local_mesh(1, SHARDS, devices=[where])
+        pq = ShardedStableIndex.build(mesh, ds.features, ds.attrs, mc, HelpConfig(),
+                                      QuantConfig("pq", pq_subspaces=ADC_S))
+        exact = dataclasses.replace(pq, quant_mode="none", shard_codes=None, pq_centroids=None,
+                                    pq_dim=0)
+        oracle = brute_force_hybrid(to_tensor(ds.features, torch.float32, where),
+                                    to_tensor(ds.attrs, torch.int32, where),
+                                    ds.query_features, ds.query_attrs, 10).ids.cpu()
+        recall[tag] = {c: recall_at_k(Engine(i).search(q, SearchParams(k=10)).ids.cpu(),
+                                             oracle, 10)
+                              for c, i in (("none", exact), ("pq", pq))}
+        log(f"  sharded N={SMALL_N} on the {tag}: MATCH recall@10 {recall[tag]} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    for c in ("none", "pq"):
+        if abs(recall["card"][c] - recall["cpu"][c]) > SMALL_RECALL_GAP:
+            raise SystemExit(f"sharded {c} N={SMALL_N}: card recall {recall['card'][c]:.4f} vs "
+                             f"CPU {recall['cpu'][c]:.4f}: gap > {SMALL_RECALL_GAP}")
+    out["card_vs_cpu"] = recall
+    return out
+
+
+def check_sharded_kernels(dev, ds, sidx, seed: int) -> dict:
+    """gather_auto at a shard hop: SHARD_HOP over one shard's rows (10%
+    INVALID), in the index's metric, against its plain version and timed
+    beside its bound."""
+    from repro_torch.core import to_tensor
+    from repro_torch.kernels.gather_auto.ops import gather_auto, gather_auto_ref
+
+    rng = np.random.default_rng(seed)
+    v, a = sidx.shard_features[0], sidx.shard_attrs[0]
+    rows, m = (int(x) for x in v.shape)
+    l = int(a.shape[1])
+    alpha, mode = sidx.metric_cfg.alpha, sidx.metric_cfg.mode
+    b, c = SHARD_HOP
+    q = predicate_batches(ds)["MATCH"]
+    qv = to_tensor(q.vectors[:b], torch.float32, dev)
+    qa = to_tensor(q.attrs[:b], torch.int32, dev)
+    cand_np = rng.integers(0, rows, (b, c)).astype(np.int32)
+    cand_np[rng.random((b, c)) < 0.1] = -1
+    ids = to_tensor(cand_np, torch.int32, dev)
+    got = gather_auto(qv, qa, v, a, ids, alpha, mode)
+    want = gather_auto_ref(qv, qa, v, a, ids, alpha, mode)
+    err = (got.double() - want.double()).abs()
+    ratio = float((err / (GATHER_RTOL * want.double().abs() + 1e-6)).max())
+    valid = ids[ids >= 0]
+    n_rows = int(torch.unique(valid).numel())
+    bound_ms, bound_by = bound(n_rows * (m + l) * 4 + b * c * 4 * 2 + b * (m + 2 * l) * 4,
+                               int(valid.numel()) * (3 * m + 4 * l + 4))
+    r = dict(
+        shape=f"shard hop B={b} C={c} over {rows} rows, M={m} L={l} {mode}",
+        max_abs_err=float(err.max()), worst_err_over_tol=ratio,
+        ms=cuda_ms(lambda: gather_auto(qv, qa, v, a, ids, alpha, mode)),
+        device_ms=device_ms(lambda: gather_auto(qv, qa, v, a, ids, alpha, mode)),
+        plain_ms=cuda_ms(lambda: gather_auto_ref(qv, qa, v, a, ids, alpha, mode), reps=5),
+        library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+    )
+    log(f"  sharded {r['shape']}: kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f} ms), "
+        f"plain {r['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); max|err| "
+        f"{r['max_abs_err']:.3e}, worst err/tol {ratio:.3f}")
+    if ratio > 1.0:
+        raise SystemExit("sharded hop: gather_auto disagrees with its plain version")
+    return r
+
+
 def fused_err(got, want, qv, qa, xv, xa, alpha: float, mode: str) -> tuple[float, float]:
     """(max |err|, worst err/tol) of fused_auto against its plain version,
     tol = (1e-5·(‖q‖² + ‖x‖²) + 1e-6)·pen² + 1e-6·|ref| with pen² the
@@ -2810,6 +3098,19 @@ def main(argv=None) -> int:
         tier_out["step_s"] = time.perf_counter() - t0
         log(f"  tiered step: {tier_out['step_s']:.2f} s")
         kern["tiered"] = check_tiered_kernels(dev, ds, pq_eng, args.seed)
+        log("[4] sharded: ShardedStableIndex on a (data=1, model=4) mesh on the one card, exact "
+            "then pq")
+        t0 = time.perf_counter()
+        (shard_out, seng), shard_launches = drive(
+            run_sharded_path, ("gather_auto", "fused_auto"), dev, ds, eng, pq_eng, args.seed,
+            workdir)
+        shard_out["step_s"] = time.perf_counter() - t0
+        kern["sharded"] = check_sharded_kernels(dev, ds, seng.index, args.seed)
+        t0 = time.perf_counter()
+        shard_out.update(check_sharded_small(dev, args.seed))
+        shard_out["checks_s"] = time.perf_counter() - t0
+        log(f"  sharded step: {shard_out['step_s']:.2f} s, exhaustive and N={SMALL_N} checks "
+            f"{shard_out['checks_s']:.2f} s")
         # last: searches timed after the profiler run slower; not counted
         q = predicate_batches(ds)["MATCH"]
         profiles = {f"{tag}/{b}": profile_search(e, q, SearchParams(k=10, backend=b))
@@ -2818,9 +3119,11 @@ def main(argv=None) -> int:
         profiles["partitioned/brute"] = profile_call(
             f"partitioned nprobe={part_params.nprobe} brute",
             lambda: peng.search(part_q, part_params))
+        profiles["sharded/exact"] = profile_call(
+            f"sharded {SHARDS} shards exact", lambda: seng.search(q, SearchParams(k=10)))
         # the mutable step takes the exact index over; nothing else keeps it
         mutable_base = [(eng.index, eng._cost_model)]
-        del eng, pq_eng, serve_flush, peng
+        del eng, pq_eng, serve_flush, peng, seng
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     gc.collect()
@@ -2864,7 +3167,8 @@ def main(argv=None) -> int:
     (recsys_out, calls), recsys_launches = drive(
         run_recsys_path, ("fm_interaction", "fused_auto"), dev, fm_cfg, fm_params, args.seed)
     launches = {k: exact_launches[k] + serve_launches[k] + quant_launches[k] + part_launches[k]
-                + tier_launches[k] + mut_launches[k] + recsys_launches[k] for k in wrappers}
+                + tier_launches[k] + shard_launches[k] + mut_launches[k] + recsys_launches[k]
+                for k in wrappers}
     profiles.update({f"recsys/{label}": profile_call(label, fn) for label, fn in calls.items()})
     del fm_params, calls
     torch.cuda.empty_cache()
@@ -2909,12 +3213,14 @@ def main(argv=None) -> int:
             if name in kern["partition_probe"] else {}),
          **({{"fused_auto": "delta_scan", "gather_auto": "link_hop"}[name]:
              kern["mutable"][name]} if name in kern["mutable"] else {}),
-         **({"tiered": kern["tiered"]} if name == "gather_auto" else {})}
+         **({"tiered": kern["tiered"], "sharded_hop": kern["sharded"]}
+            if name == "gather_auto" else {})}
         for name, (src, rep) in sources.items()
     ]}
     log("[6] summary " + json.dumps({"n": args.n, "main_path": main_out, "serve": serve_out,
                                      "quantized": quant_out, "partitioned": part_out,
-                                     "tiered": tier_out, "mutable": mut_out,
+                                     "tiered": tier_out, "sharded": shard_out,
+                                     "mutable": mut_out,
                                      "recsys": recsys_out, "recsys_cut_vocab": recsys_small,
                                      "profiles": profiles, "small_input": small,
                                      "launches": {"exact": exact_launches,
@@ -2922,6 +3228,7 @@ def main(argv=None) -> int:
                                                   "quantized": quant_launches,
                                                   "partitioned": part_launches,
                                                   "tiered": tier_launches,
+                                                  "sharded": shard_launches,
                                                   "mutable": mut_launches,
                                                   "recsys": recsys_launches},
                                      "gather_descent_block": kern["gather_auto"]["descent_block"],

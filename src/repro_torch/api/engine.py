@@ -1,5 +1,5 @@
-"""Engine facade: one search entry point over the graph, brute and
-partitioned backends.
+"""Engine facade: one search entry point over the graph, sharded, brute
+and partitioned backends.
 
 ``Engine.search(QueryBatch, SearchParams) -> SearchResult`` runs an
 explicit plan→compile→execute pipeline:
@@ -12,6 +12,9 @@ explicit plan→compile→execute pipeline:
     graph  single-host HELP traversal (``gather_auto`` on every hop; on a
            quantized index over codes, then an exact ``gather_auto`` rerank
            of the pool head)
+    sharded  the same traversal on every model shard of a
+           ``ShardedStableIndex`` (``repro_torch.distributed``), an exact
+           top-k merge, or a pooled rerank over codes
     brute  exact predicate oracle: hard filter + L2 top-k over every row
            (``fused_auto``); on a PQ-quantized index an ADC scan of every
            code (``adc_scan`` / ``adc_scan4``) and an exact rerank of the
@@ -28,8 +31,8 @@ filters on the brute oracle and a soft AUTO penalty under traversal unless
 ``enforce_equality=True``.
 
 The engine runs on the device that holds its index (``device=None`` at
-construction → the CUDA card). The sharded backend is not ported yet and
-raises ``NotImplementedError``.
+construction → the CUDA card); a sharded engine merges on its first
+shard's device.
 """
 from __future__ import annotations
 
@@ -52,8 +55,9 @@ from repro_torch.core import resolve_device, routing as routing_mod, to_tensor
 from repro_torch.core.auto import DatasetStats, MetricConfig
 from repro_torch.core.graph_ops import INF, INVALID, smallest_k
 from repro_torch.core.help_graph import HelpConfig
-from repro_torch.core.index import FORMAT, StableIndex
+from repro_torch.core.index import StableIndex
 from repro_torch.core.routing import RoutingConfig, SearchResult
+from repro_torch.distributed.search import SHARDED_META, ShardedStableIndex, is_sharded_dir
 from repro_torch.kernels.gather_auto.ops import gather_auto
 from repro_torch.obs import trace as obs_trace
 from repro_torch.partition.index import PartitionedStableIndex, is_partitioned_dir
@@ -65,7 +69,6 @@ Tensor = torch.Tensor
 
 BACKENDS = ("auto", "graph", "sharded", "brute", "partitioned")
 QUANT_PARAMS = ("auto",) + QUANT_MODES
-SHARDED_META = "sharded_meta.json"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,6 +162,23 @@ class GraphSearcher:
             idx.metric_cfg, plan.routing_cfg,
             mask=_mask(engine, queries), entry_ids=entry_ids, seed=params.seed,
             quant=idx.quant if plan.quant_mode != "none" else None,
+        )
+
+
+class ShardedSearcher:
+    """Traversal on every model shard, a cross-shard rerank and an exact
+    top-k merge (``ShardedStableIndex``). Entry pools are local to each
+    shard, so the executor's global entry pool is ignored."""
+
+    name = "sharded"
+
+    def search(self, engine, queries, params, plan, entry_ids=None):
+        dev = engine.device
+        return engine.index.search(
+            to_tensor(queries.vectors, torch.float32, dev),
+            to_tensor(queries.targets, torch.int32, dev),
+            k=params.k, routing_cfg=plan.routing_cfg,
+            mask=_mask(engine, queries), seed=params.seed,
         )
 
 
@@ -276,13 +296,15 @@ def _filtered_topk(
     )
 
 
-_SEARCHERS: dict[str, Searcher] = {s.name: s for s in (GraphSearcher(), BruteForceSearcher())}
+_SEARCHERS: dict[str, Searcher] = {
+    s.name: s for s in (GraphSearcher(), ShardedSearcher(), BruteForceSearcher())
+}
 
 
 @dataclasses.dataclass
 class Engine:
-    """The one search facade over a single-host ``StableIndex`` or a
-    ``PartitionedStableIndex``.
+    """The one search facade over a single-host ``StableIndex``, a
+    ``ShardedStableIndex`` or a ``PartitionedStableIndex``.
 
     ``cost_model`` may be injected at construction; otherwise it is
     calibrated lazily from one probe the first time an auto-plan needs it."""
@@ -293,7 +315,7 @@ class Engine:
     #: attribute, not a field, so equality and repr are untouched.
     write_epoch = 0
 
-    index: Union[StableIndex, PartitionedStableIndex]
+    index: Union[StableIndex, ShardedStableIndex, PartitionedStableIndex]
     cost_model_override: Optional[CostModel] = dataclasses.field(
         default=None, repr=False, compare=False
     )
@@ -324,6 +346,12 @@ class Engine:
         if self._cost_model is None:
             if self.cost_model_override is not None:
                 self._cost_model = self.cost_model_override
+            elif self.is_sharded:
+                raise ValueError(
+                    "cost_model applies to single-host engines only — a "
+                    "sharded index always plans onto the sharded backend, "
+                    "so there is no brute/graph crossover to calibrate"
+                )
             elif self.is_partitioned:
                 # no global arrays to probe; the model only prices the
                 # sub-backend choice, so the prior will do (a measured
@@ -345,8 +373,6 @@ class Engine:
             from repro_torch.partition.search import PartitionedSearcher
 
             _SEARCHERS[name] = PartitionedSearcher()
-        if name not in _SEARCHERS:
-            raise NotImplementedError(f"the {name!r} backend is not ported yet")
         return _SEARCHERS[name]
 
     def invalidate_caches(self) -> None:
@@ -421,29 +447,35 @@ class Engine:
     # -- introspection -------------------------------------------------------
 
     @property
+    def is_sharded(self) -> bool:
+        return not isinstance(self.index, (StableIndex, PartitionedStableIndex))
+
+    @property
     def is_partitioned(self) -> bool:
         return isinstance(self.index, PartitionedStableIndex)
 
     @property
     def n_items(self) -> int:
-        if self.is_partitioned:
+        if self.is_partitioned or self.is_sharded:
             return self.index.n_items
         return int(self.index.features.shape[0])
 
     @property
     def attr_dim(self) -> int:
+        if self.is_sharded:
+            return self.index.attr_dim
         return int(self.index.attrs.shape[1])
 
     @property
     def has_graph(self) -> bool:
-        if self.is_partitioned:
+        if self.is_partitioned or self.is_sharded:
             return self.index.has_graph
         return int(self.index.graph.shape[1]) > 0
 
     @property
     def quant_mode(self) -> str:
         """Codec attached to the index ("none" when unquantized)."""
-        if self.is_partitioned:
+        if self.is_partitioned or self.is_sharded:
             return self.index.quant_mode
         return self.index.quant.cfg.mode if self.index.quant is not None else "none"
 
@@ -452,7 +484,8 @@ class Engine:
     def _resolve_quant(self, params: SearchParams, backend: str) -> str:
         """The codec a search runs with: ``auto`` takes the index's, except
         that brute plus sq8 scans exactly (there is no sq8 scan kernel);
-        ``none`` forces a full-precision search."""
+        ``none`` forces a full-precision search, except on a quantized
+        sharded index, whose shards hold codes in place of f32 reads."""
         stored = self.quant_mode
         if params.quant == "auto":
             if backend == "brute" and stored == "sq8":
@@ -463,6 +496,11 @@ class Engine:
                 "the brute-force backend has no sq8 scan path; use quant='auto' or 'none'"
             )
         if params.quant == "none":
+            if self.is_sharded and stored != "none":
+                raise ValueError(
+                    "quant='none' on a quantized sharded index is not "
+                    "supported (codes are sharded in place of f32 reads)"
+                )
             return "none"
         if params.quant != stored:
             raise ValueError(
@@ -520,13 +558,14 @@ class Engine:
 
     def save(self, path: str) -> None:
         """Persist the engine: the single-host ``stable-single-v1`` layout,
-        or ``stable-partitioned-v1`` for a partitioned index, with the
-        planner cost model in meta.json (a flat graph engine that has not
-        planned yet runs the probe once here; a partitioned one takes the
-        prior)."""
+        ``stable-sharded-v1`` for a sharded index or
+        ``stable-partitioned-v1`` for a partitioned one, with the planner
+        cost model in the meta (a flat graph engine that has not planned
+        yet runs the probe once here; a partitioned one takes the prior; a
+        sharded one keeps a model only when one was injected)."""
         extra = {}
         cm = self._cost_model or self.cost_model_override
-        if cm is None and self.has_graph:
+        if cm is None and not self.is_sharded and self.has_graph:
             cm = self.cost_model
         if cm is not None:
             extra["cost_model"] = cm.to_json()
@@ -539,29 +578,33 @@ class Engine:
         device=None,
         mmap: bool = False,
         residency_rows: Optional[int] = None,
+        mesh=None,
     ) -> "Engine":
         """Load a saved engine (either package's) onto ``device`` (None →
         the CUDA card), sniffing the format. A persisted cost model is
         restored as ``cost_model_override``: load runs no probe.
 
+        A sharded layout goes onto ``mesh`` (a ``launch.mesh.LocalMesh``;
+        None → ``data=1`` and the saved shard count on ``device``).
         ``mmap`` memory-maps the single-host array files (partitioned
         layouts always map theirs: their rows reach the device per
         partition, on residency). ``residency_rows`` caps a partitioned
         layout's resident rows (see ``partition.SegmentStore``)."""
         meta_file = os.path.join(path, "meta.json")
-        if os.path.exists(os.path.join(path, SHARDED_META)):
-            raise NotImplementedError(f"{path} holds a sharded engine; not ported yet")
-        if is_partitioned_dir(path):
+        if is_sharded_dir(path):
+            if residency_rows is not None:
+                raise ValueError("residency_rows only applies to partitioned layouts")
+            index = ShardedStableIndex.load(path, mesh=mesh, device=device)
+            meta_file = os.path.join(path, SHARDED_META)
+        elif mesh is not None:
+            raise ValueError(f"{path} holds an unsharded engine; mesh= only applies to sharded layouts")
+        elif is_partitioned_dir(path):
             index = PartitionedStableIndex.load(
                 path, residency_rows=residency_rows, device=device
             )
         else:
             if residency_rows is not None:
                 raise ValueError("residency_rows only applies to partitioned layouts")
-            with open(meta_file) as f:
-                fmt = json.load(f).get("format", FORMAT)
-            if fmt != FORMAT:
-                raise NotImplementedError(f"{path} holds a {fmt!r} engine; not ported yet")
             index = StableIndex.load(path, device=device, mmap=mmap)
         with open(meta_file) as f:
             saved_cm = json.load(f).get("cost_model")

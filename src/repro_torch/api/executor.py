@@ -4,7 +4,7 @@ A plan signature (batch shape × predicate kind × resolved ``RoutingConfig``
 × codec × backend) keys a bounded LRU of compiled executables: closures
 holding the widened exec plan, the cached entry pool and the post-filter
 decision. A cache hit pays one dict lookup plus the device work. Each miss
-on the graph backend counts one compiled plan in
+on the graph or sharded backend counts one compiled plan in
 ``core.routing.trace_count`` (the port has no jit; this is the counterpart
 of the reference's trace count), so a repeated signature compiles nothing.
 
@@ -173,8 +173,9 @@ class Executor:
                 )
 
         entry_ids = None
-        if exec_plan.backend == "graph":
+        if exec_plan.backend in ("graph", "sharded"):
             routing_mod.note_compiled_plan()
+        if exec_plan.backend == "graph":  # sharded: each shard draws its own
             # the entry pool is a pure function of (N, B, pool, seed)
             entry_ids = routing_mod.make_entry_ids(
                 engine.n_items, sig.batch, exec_plan.routing_cfg.pool_size,

@@ -23,7 +23,8 @@ On a quantized index the probe routes over codes, as serving will, and
 fits on the code scorings. A partitioned index plans onto the partitioned
 backend, which resolves ``nprobe`` and prices the brute or graph
 sub-backend at the average partition size (``_plan_partitioned``); it runs
-no probe. The sharded rules raise ``NotImplementedError``.
+no probe. A sharded index always plans onto the sharded backend, which
+has no brute/graph crossover to price.
 """
 from __future__ import annotations
 
@@ -295,7 +296,7 @@ def make_plan(engine: "Engine", queries: QueryBatch, params: "SearchParams") -> 
     batch. Rules, first match wins:
 
       1. ``params.backend`` override (validated against the index kind)
-      2. partitioned index → "partitioned"
+      2. sharded index → "sharded"; partitioned index → "partitioned"
       3. no HELP graph (``build_graph=False``) → "brute"
       4. deprecated ``params.brute_threshold`` explicitly set → fixed-N rule
       5. calibrated cost model: brute vs graph at the predicted per-query
@@ -306,14 +307,13 @@ def make_plan(engine: "Engine", queries: QueryBatch, params: "SearchParams") -> 
     """
     if queries.attr_dim != engine.attr_dim:
         raise ValueError(f"query attr_dim {queries.attr_dim} != index {engine.attr_dim}")
-    if params.backend == "sharded":
-        raise NotImplementedError(
-            "backend='sharded': the sharded backend is not ported yet; the "
-            "port serves the graph, brute and partitioned backends"
-        )
     cost_brute = cost_graph = None
     if params.backend != "auto":
         backend = params.backend
+        if backend == "sharded" and not engine.is_sharded:
+            raise ValueError("backend='sharded' needs a sharded index")
+        if backend != "sharded" and engine.is_sharded:
+            raise ValueError(f"backend={backend!r} unavailable on a sharded index")
         if backend == "partitioned" and not engine.is_partitioned:
             raise ValueError(
                 "backend='partitioned' needs a partitioned index "
@@ -330,6 +330,8 @@ def make_plan(engine: "Engine", queries: QueryBatch, params: "SearchParams") -> 
         reason = "explicit backend override"
     elif engine.is_partitioned:
         backend, reason = "partitioned", "index is partitioned (IVF coarse quantizer)"
+    elif engine.is_sharded:
+        backend, reason = "sharded", "index is sharded over the mesh"
     elif not engine.has_graph:
         backend, reason = "brute", "index built without a HELP graph"
     elif params.brute_threshold is not None:
@@ -380,7 +382,7 @@ def make_plan(engine: "Engine", queries: QueryBatch, params: "SearchParams") -> 
     # plan its sub-backend (a brute sub-scan has no sq8 path either)
     quant_mode = engine._resolve_quant(params, sub_backend or backend)
     routing_cfg = None
-    if backend == "graph" or sub_backend == "graph":
+    if backend in ("graph", "sharded") or sub_backend == "graph":
         routing_cfg = params.routing_config(quant_mode, params.enforce_equality)
     return Plan(
         backend=backend, quant_mode=quant_mode, routing_cfg=routing_cfg,

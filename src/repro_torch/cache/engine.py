@@ -112,8 +112,11 @@ class TieredEngine:
                 "engine, not a MutableEngine: tier row ids do not survive "
                 "merges; write traffic is covered by the serve ResultCache epoch)"
             )
-        # the reference also rejects a sharded engine here; the port has
-        # none until the sharded backend (ROADMAP queue 1, item 10)
+        if engine.is_sharded:
+            raise ValueError(
+                "sharded engines rerank inside their shard loop; tiering "
+                "applies to flat and partitioned engines"
+            )
         if epoch_queries <= 0:
             raise ValueError("epoch_queries must be positive")
         self.base = engine

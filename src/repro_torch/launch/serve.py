@@ -6,11 +6,13 @@ are admitted per tenant (token bucket + k/pool caps), coalesced by
 compatible plan signature inside a micro-batch window, padded up the bucket
 ladder and executed through one shared ``Engine`` — repeated windows replay
 cached executables and compile nothing. One engine is built (or loaded from
-``--index-dir``, a ``stable-single-v1`` or ``stable-partitioned-v1`` index
-saved by either package; ``--residency-rows`` caps a partitioned index's
-device-resident rows) once and reused for the whole stream; all timing comes from ``ServerStats``
-(end-to-end p50/p95/p99, batch-fill ratio, plan-cache hit rate, per-tenant
-QPS), not ad-hoc stopwatches.
+``--index-dir``, a ``stable-single-v1``, ``stable-sharded-v1`` or
+``stable-partitioned-v1`` index saved by either package, e.g. by
+``repro_torch.launch.build``; a sharded one goes onto a mesh with its saved
+model shards and one data block; ``--residency-rows`` caps a partitioned
+index's device-resident rows) once and reused for the whole stream; all
+timing comes from ``ServerStats`` (end-to-end p50/p95/p99, batch-fill
+ratio, plan-cache hit rate, per-tenant QPS), not ad-hoc stopwatches.
 
 The engine runs on the CUDA card unless ``--device cpu`` asks for the
 kernels' plain PyTorch versions; without a card the default raises.

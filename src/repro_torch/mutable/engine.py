@@ -127,8 +127,11 @@ class MutableEngine:
                 "engine is rejected too: merges renumber rows under its "
                 "frequency tracker)"
             )
-        # the reference also rejects a sharded engine here; the port has
-        # none until the sharded backend (ROADMAP queue 1, item 10)
+        if engine.is_sharded:
+            raise ValueError(
+                "MutableEngine wraps single-host engines (the sharded "
+                "index has no incremental link path yet)"
+            )
         if engine.is_partitioned:
             raise ValueError(
                 "MutableEngine wraps single-host flat engines — the "

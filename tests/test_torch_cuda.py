@@ -14,7 +14,10 @@ trace on the card returns, for every request, what its query returns
 searched alone, bit for bit, on both backends. A merge of the mutable
 engine on the card gives the CPU's adjacency (and codes, for pq and pq4)
 on integer data, the delta scan equals its plain version, and the old
-index's memory is freed after the swap.
+index's memory is freed after the swap. A sharded index on a (data=1,
+model=4) mesh on the card: the exhaustive merge equals a brute oracle
+scored by the same kernel, data=2 equals data=1 and a save and load
+equals the index saved, bit for bit.
 """
 import dataclasses
 from types import SimpleNamespace
@@ -755,3 +758,77 @@ def test_tiered_engine_on_card_equals_untiered(tiered_case, codec, backend):
                     state, kind, field)
     st = tiered.tier_stats()
     assert st["hot_row_hits"] > 0 and st["cold_row_gathers"] > 0 and st["demotions"] > 0
+
+
+@pytest.fixture(scope="module")
+def sharded_case():
+    """Float sift-profile data, n = 8,192, on a (data=1, model=4) mesh on
+    the card: the exact sharded index and a pq one (S = 16)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
+    from repro_torch.core.auto import MetricConfig, sample_stats
+    from repro_torch.distributed import ShardedStableIndex
+    from repro_torch.launch.mesh import make_local_mesh
+
+    ds = make_hybrid_dataset(n=8_192, n_queries=64, profile="sift", seed=3)
+    mc = MetricConfig(alpha=sample_stats(ds.features, ds.attrs).alpha)
+    mesh = make_local_mesh(1, 4)
+    return ds, mc, {codec: ShardedStableIndex.build(mesh, ds.features, ds.attrs, mc,
+                                                    quant_cfg=QuantConfig(codec, pq_subspaces=16))
+                    for codec in ("none", "pq")}
+
+
+def test_sharded_exhaustive_merge_on_card_equals_brute_oracle(sharded_case):
+    """Pool = shard rows: each shard's search is exhaustive, so the merge
+    equals a brute oracle that scores every row with the same kernel
+    (gather_auto over all ids, then the stable top-k): sqdists bit for bit,
+    ids except at exact ties."""
+    from repro_torch.core.graph_ops import smallest_k
+    from repro_torch.core.routing import RoutingConfig
+    from repro_torch.distributed import ShardedStableIndex
+    from repro_torch.launch.mesh import make_local_mesh
+
+    ds, mc, _ = sharded_case
+    n = 2_048
+    idx = ShardedStableIndex.build(make_local_mesh(1, 4), ds.features[:n], ds.attrs[:n], mc)
+    cfg = RoutingConfig(k=10, pool_size=n // 4, pioneer_size=16, refine_max_iters=n)
+    res = idx.search(ds.query_features, ds.query_attrs, k=10, routing_cfg=cfg)
+    dev = idx.device
+    qv = torch.from_numpy(ds.query_features).to(dev)
+    every = torch.arange(n, dtype=torch.int32, device=dev).expand(len(qv), -1).contiguous()
+    want_sq, want_ids = smallest_k(gather_auto(
+        qv, torch.from_numpy(ds.query_attrs).to(dev), torch.from_numpy(ds.features[:n]).to(dev),
+        torch.from_numpy(ds.attrs[:n]).to(dev), every, mc.alpha, mc.mode), 10)
+    assert torch.equal(res.sqdists, want_sq)
+    for r, p in zip(*torch.nonzero(res.ids != want_ids.to(torch.int32), as_tuple=True)):
+        assert int((want_sq[r] == want_sq[r, p]).sum()) > 1
+
+
+@pytest.mark.parametrize("codec", ["none", "pq"])
+def test_sharded_data_axis_bit_equal_on_card(sharded_case, codec):
+    """data=2 and data=1 give the same ids and sqdists bit for bit, on the
+    four predicate kinds."""
+    from repro_torch.launch.mesh import make_local_mesh
+
+    ds, _, idxs = sharded_case
+    one = Engine(idxs[codec])
+    two = Engine(dataclasses.replace(idxs[codec], mesh=make_local_mesh(2, 4)))
+    for kind, q in _part_batches(ds).items():
+        a, b = one.search(q, SearchParams(k=10)), two.search(q, SearchParams(k=10))
+        for field in ("ids", "sqdists", "n_dist_evals", "n_code_evals"):
+            assert torch.equal(getattr(a, field), getattr(b, field)), (kind, field)
+
+
+@pytest.mark.parametrize("codec", ["none", "pq"])
+def test_sharded_save_load_on_card_bit_equal(sharded_case, codec, tmp_path):
+    ds, _, idxs = sharded_case
+    eng = Engine(idxs[codec])
+    eng.save(str(tmp_path / codec))
+    back = Engine.load(str(tmp_path / codec))
+    assert back.is_sharded and back.index.mesh.shape == {"data": 1, "model": 4}
+    for name in ("features", "attrs", "graphs") + (("codes",) if codec == "pq" else ()):
+        assert torch.equal(getattr(back.index, name), getattr(idxs[codec], name)), name
+    for kind, q in _part_batches(ds).items():
+        a, b = eng.search(q, SearchParams(k=10)), back.search(q, SearchParams(k=10))
+        for field in ("ids", "sqdists", "n_dist_evals", "n_code_evals", "n_hops"):
+            assert torch.equal(getattr(a, field), getattr(b, field)), (kind, field)

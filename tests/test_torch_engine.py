@@ -127,10 +127,10 @@ def test_from_parts_and_unported_paths(engines, tmp_path):
     assert dataclasses.asdict(eng.index.stats) == dataclasses.asdict(idx.stats)
     res = eng.search(tb["match"], TParams(backend="graph"))
     assert torch.equal(res.ids, teng.search(tb["match"], TParams(backend="graph")).ids)
-    with pytest.raises(NotImplementedError):
+    # the sharded and partitioned backends are ported; a flat index
+    # refuses both as the reference's does
+    with pytest.raises(ValueError, match="needs a sharded index"):
         eng.search(tb["match"], TParams(backend="sharded"))
-    # the partitioned backend is ported; a flat index refuses it as the
-    # reference's does
     with pytest.raises(ValueError, match="needs a partitioned index"):
         eng.search(tb["match"], TParams(backend="partitioned"))
     with pytest.raises(ValueError):

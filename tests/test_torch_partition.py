@@ -457,7 +457,7 @@ def test_backend_validation(pair, flat_and_part, data):
         flat_and_part["none"][1].plan(qb, tapi.SearchParams(sub_backend="graph"))
     with pytest.raises(ValueError, match="unknown sub_backend"):
         tapi.SearchParams(sub_backend="bogus")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs a sharded index"):
         teng.plan(qb, tapi.SearchParams(backend="sharded"))
     # a scan-only index plans the brute sub-backend
     assert flat_and_part["none"][1].plan(qb, tapi.SearchParams()).sub_backend == "brute"
