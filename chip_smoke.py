@@ -128,13 +128,27 @@ Phases:
      Then the recsys path: make_recsys_serve_step at serve_p99 and
      serve_bulk, make_recsys_retrieval_step at retrieval_cand (one user
      against 1,000,000 items, k=100) and at B=512, each a median of
-     several batches, then each profiled once; last of all, one more
-     Engine.build of phase 4's data under the profiler
+     several batches, then each profiled once. Then the recsys models, one
+     at a time at full width, each freed before the next: dlrm-rm2 (26 x
+     1M x 64 tables, 6.66 GB), xdeepfm (39 x 1M x 10 tables, linear
+     weights, a CIN of 3 x 200) and bert4rec (a 1M x 64 item table, 2
+     blocks, sequences of 200), parameters drawn on the card from --seed
+     (the count held to the reference's formula); the card against the
+     CPU at a cut vocabulary (V=1,000; bert4rec 20,000 items) under FP32
+     and MIXED: serve logits at B=512 (bert4rec: bert4rec_serve_topk, its
+     chunks of 4, 5 and 16 against each other), user towers and
+     retrieval at B=16 against 20,000 items (k=100, topk_shards 1 and 4);
+     fused_auto at M=64 on the dlrm-rm2 and bert4rec user vectors (B=1
+     and 512, N=1M, L=4) against its plain version, batch-invariant,
+     timed; the serve cells (bert4rec through bert4rec_serve_topk, k=100,
+     chunks of 4,096) and retrieval steps timed as fm's (serve_bulk over 2
+     batches after a warm-up) with peak memory and model FLOP/s, each
+     profiled once. Last of all, one more Engine.build of phase 4's data
+     under the profiler
   6. a JSON line of every kernel's launches in phases 4 and 5 (the exact,
-     serve, quantized, partitioned, tiered, sharded, mutable and recsys paths, each counted
-     from 0; a
-     kernel of a path that the path never launched fails the run), error
-     and times
+     serve, quantized, partitioned, tiered, sharded, mutable, recsys and
+     recsys-model paths, each counted from 0; a kernel of a path that the
+     path never launched fails the run), error and times
 
 At N = 1M this dataset's graph recall is low (the AUTO-built HELP graph
 splits by attribute combination; the reference does the same): it is
@@ -221,6 +235,21 @@ RETRIEVAL_K, CUT_VOCAB, CUT_ITEMS = 100, 1000, 20_000
 RETRIEVAL_RTOL, RETRIEVAL_ATOL = 1e-5, 1e-6
 #: item factors at the scale of a user vector (a sum of 39 rows of N(0, 0.01²))
 ITEM_SCALE = 0.0625
+#: phase 5's recsys models after fm, each driven at full width and freed
+#: before the next, with the cut vocabulary of its card-against-CPU check
+#: (bert4rec: its item count)
+RECSYS_MODELS = (("dlrm-rm2", {"vocab_per_field": CUT_VOCAB}),
+                 ("xdeepfm", {"vocab_per_field": CUT_VOCAB}),
+                 ("bert4rec", {"n_items": CUT_ITEMS}))
+#: the models' card against the CPU, |Δ| ≤ tol·max|cpu| by precision: f32
+#: products summed in other orders; bf16 steps of 2^-8 that run on through
+#: the layers (the tolerances of tests/test_torch_recsys_models.py)
+MODEL_TOL = {"FP32": 1e-5, "MIXED": 0.03}
+#: bert4rec serves through bert4rec_serve_topk in chunks of the reference's
+#: serve_chunk (launch/build.py:229); the chunks held against each other
+SERVE_CHUNK, TOPK_CHUNKS = 4096, (4, 5, 16)
+#: H100 SXM dense bf16 peak (data sheet), for model FLOP/s beside the f32 one
+PEAK_BF16_FLOPS = 989e12
 #: phase 4's serve trace: requests from tenants in turn, Poisson arrivals
 #: at SERVE_RATE a second in all on serve_loop's virtual clock, the window
 #: and bucket ladder of launch/serve.py, every 16th response held to its
@@ -2749,10 +2778,17 @@ def bound(bytes_: float, ops: float) -> tuple[float, str]:
 
 
 def recsys_batch(rng, cfg, b: int, dev) -> dict:
-    """b users' ids (B, F) and attribute targets (B, 4), from numpy."""
-    ids = rng.integers(0, cfg.vocab_per_field, (b, cfg.n_sparse), dtype=np.int32)
-    qa = rng.integers(0, 3, (b, cfg.n_attr_dims), dtype=np.int32)
-    return {"sparse": torch.from_numpy(ids).to(dev), "query_attrs": torch.from_numpy(qa).to(dev)}
+    """b users' inputs from numpy: ids (B, F) (and dense features (B, 13)
+    N(0, 1) for dlrm), or bert4rec histories (B, seq_len); attribute
+    targets (B, 4)."""
+    if cfg.kind == "bert4rec":
+        batch = {"items": rng.integers(0, cfg.n_items, (b, cfg.seq_len), dtype=np.int32)}
+    else:
+        batch = {"sparse": rng.integers(0, cfg.vocab_per_field, (b, cfg.n_sparse), dtype=np.int32)}
+        if cfg.n_dense:
+            batch["dense"] = rng.standard_normal((b, cfg.n_dense), dtype=np.float32)
+    batch["query_attrs"] = rng.integers(0, 3, (b, cfg.n_attr_dims), dtype=np.int32)
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 
 def make_items(dev, n: int, cfg, seed: int) -> dict:
@@ -2766,19 +2802,27 @@ def make_items(dev, n: int, cfg, seed: int) -> dict:
     }
 
 
-def check_topk(got, want, label: str) -> None:
-    """Card (sq-dists, ids) against the CPU's: sq-dists within tolerance,
-    ids equal except at near-ties."""
+def check_topk(got, want, label: str, rtol: float = RETRIEVAL_RTOL,
+               atol: float = RETRIEVAL_ATOL) -> float:
+    """(scores, ids) on the card against another run's (the CPU's by
+    default): scores within atol + rtol·|want|, ids equal except where
+    ``want`` holds another score within twice that (near-ties). Returns the
+    share of ids equal."""
     gd, gi = (t.cpu() for t in got)
-    wd, wi = want
-    torch.testing.assert_close(gd, wd, rtol=RETRIEVAL_RTOL, atol=RETRIEVAL_ATOL)
-    tie = RETRIEVAL_ATOL + RETRIEVAL_RTOL * wd.abs()
+    wd, wi = (t.cpu() for t in want)
+    if gd.shape != wd.shape or gi.shape != wi.shape or gd.dtype != wd.dtype:
+        raise SystemExit(f"{label}: {tuple(gd.shape)} {gd.dtype} against "
+                         f"{tuple(wd.shape)} {wd.dtype}")
+    tie = atol + rtol * wd.abs()
+    if not bool(((gd - wd).abs() <= tie).all()):
+        raise SystemExit(f"{label}: scores differ by {float((gd - wd).abs().max()):.3e}")
     for r, p in zip(*torch.nonzero(gi != wi, as_tuple=True)):
         near = (wd[r] - wd[r, p]).abs() <= 2 * tie[r, p]
         near[p] = False
         if not bool(near.any()):
             raise SystemExit(f"{label}: row {int(r)} slot {int(p)} id {int(gi[r, p])} != "
                              f"{int(wi[r, p])} and no near-tie")
+    return float((gi == wi).float().mean())
 
 
 def check_recsys_kernels(dev, cfg, params, seed: int) -> dict:
@@ -2787,8 +2831,6 @@ def check_recsys_kernels(dev, cfg, params, seed: int) -> dict:
     (M = 10, L = 4, B = 1 and 512, N = 1M) within its PR 11 tolerance."""
     from repro_torch.configs.fm import SPEC
     from repro_torch.kernels.fm_interaction.ops import fm_interaction, fm_interaction_ref
-    from repro_torch.kernels.fused_auto.ops import fused_auto, fused_auto_ref
-    from repro_torch.kernels.gather_auto.ref import penalty_sa
     from repro_torch.models.recsys import embedding_lookup, user_tower
 
     rng = np.random.default_rng(seed + 4)
@@ -2845,14 +2887,32 @@ def check_recsys_kernels(dev, cfg, params, seed: int) -> dict:
 
     # ---- fused_auto at the retrieval shape: user vectors from the tower
     items = make_items(dev, SPEC.cell("retrieval_cand").n_candidates, cfg, seed + 3)
-    xv, xa = items["item_embs"], items["item_attrs"]
-    n, m, l = xv.shape[0], d, xa.shape[1]
+
+    def users(b):
+        batch = recsys_batch(rng, cfg, b, dev)
+        return user_tower(cfg, params, batch), batch["query_attrs"]
+
+    report["fused_auto_retrieval"] = check_fused_retrieval(
+        users, items["item_embs"], items["item_attrs"], "retrieval_cand")
+    del items
+    torch.cuda.empty_cache()
+    return report
+
+
+def check_fused_retrieval(users, xv, xa, cell: str) -> dict:
+    """fused_auto at a retrieval shape: ``users(b)`` gives (B, M) user
+    vectors and (B, L) targets, for B = 1 and 512, against the N items
+    (xv, xa). In auto and l2 modes within its tolerance (FUSED_RTOL_NORMS,
+    FUSED_ATOL), row 0 alone bit for bit against row 0 in the batch; timed
+    beside its plain version, torch.cdist and its bound."""
+    from repro_torch.kernels.fused_auto.ops import fused_auto, fused_auto_ref
+    from repro_torch.kernels.gather_auto.ref import penalty_sa
+
+    n, m, l = xv.shape[0], xv.shape[1], xa.shape[1]
     xsq = (xv.double() ** 2).sum(1)[None, :]
     worst, max_err, invariant, retr = 0.0, 0.0, True, {}
     for b in (1, 512):
-        batch = recsys_batch(rng, cfg, b, dev)
-        qv = user_tower(cfg, params, batch)
-        qa = batch["query_attrs"]
+        qv, qa = users(b)
         for mode in ("auto", "l2"):
             got = fused_auto(qv, qa, xv, xa, 1.0, mode)
             for r0 in range(0, b, 64):  # the tolerance in double, 64 rows at a time
@@ -2896,13 +2956,8 @@ def check_recsys_kernels(dev, cfg, params, seed: int) -> dict:
         raise SystemExit(f"fused_auto at M={m} disagrees with its plain version: err/tol {worst:.3f}")
     if not invariant:
         raise SystemExit(f"fused_auto at M={m}: row 0 alone is not bitwise equal to row 0")
-    report["fused_auto_retrieval"] = dict(
-        max_abs_err=max_err, worst_err_over_tol=worst, bitwise_batch_invariant=invariant,
-        shape=f"B=1 and B=512, N={n} M={m} L={l} auto (retrieval_cand)", **retr,
-    )
-    del items, xv, xa, xsq
-    torch.cuda.empty_cache()
-    return report
+    return dict(max_abs_err=max_err, worst_err_over_tol=worst, bitwise_batch_invariant=invariant,
+                shape=f"B=1 and B=512, N={n} M={m} L={l} auto ({cell})", **retr)
 
 
 def check_recsys_small(dev, seed: int) -> dict:
@@ -2932,9 +2987,8 @@ def check_recsys_small(dev, seed: int) -> dict:
         step = make_recsys_retrieval_step(cfg, k=RETRIEVAL_K, topk_shards=shards)
         want_r = step(cpu_params, cpu_batch)
         got_r = step(card_params, card_batch)
-        check_topk(got_r, want_r, f"retrieval N={CUT_ITEMS} shards={shards}")
-        same = float((got_r[1].cpu() == want_r[1]).float().mean())
-        out[f"retrieval_shards{shards}_ids_equal"] = same
+        out[f"retrieval_shards{shards}_ids_equal"] = check_topk(
+            got_r, want_r, f"retrieval N={CUT_ITEMS} shards={shards}")
     log(f"  cut vocabulary V={CUT_VOCAB}: serve B=512 card vs CPU max|err| {err:.3e} "
         f"(bitwise {out['serve_bitwise']}); retrieval B=16 N={CUT_ITEMS} k={RETRIEVAL_K}: "
         f"ids equal {out['retrieval_shards1_ids_equal']:.4f} (1 shard), "
@@ -2942,25 +2996,45 @@ def check_recsys_small(dev, seed: int) -> dict:
     return out
 
 
-def run_recsys_path(dev, cfg, params, seed: int, reps: int = 20):
-    """Phase 5, the recsys path: make_recsys_serve_step at serve_p99 and
-    serve_bulk, make_recsys_retrieval_step at retrieval_cand and at B = 512.
-    Ids are uploaded before the clock starts; each latency is host time to
-    a synchronised result, the median over batches (the first, a warm-up,
-    not counted). Returns the results and the steps' closures for the
-    profiler."""
-    from repro_torch.configs.fm import SPEC
-    from repro_torch.train.step import make_recsys_retrieval_step, make_recsys_serve_step
+def serve_step(cfg):
+    """The serve cells' step: bert4rec's next-item top-k
+    (bert4rec_serve_topk, k = 100, chunks of SERVE_CHUNK), as the
+    reference's ``build_cell`` serves it; every other kind's logits."""
+    from repro_torch.models.recsys import bert4rec_serve_topk
+    from repro_torch.train.step import make_recsys_serve_step
 
+    if cfg.kind == "bert4rec":
+        return lambda params, batch: bert4rec_serve_topk(
+            cfg, params, batch["items"], k=RETRIEVAL_K, batch_chunk=SERVE_CHUNK)
+    return make_recsys_serve_step(cfg)
+
+
+def run_recsys_path(dev, cfg, params, seed: int, reps: int = 20, bulk_batches: int = 5):
+    """Phase 5, the recsys path: the serve step (``serve_step``) at
+    serve_p99 and serve_bulk, make_recsys_retrieval_step at retrieval_cand
+    and at B = 512. Inputs are uploaded before the clock starts; each
+    latency is host time to a synchronised result, the median over batches
+    (the first, a warm-up, not counted), with the peak device memory over
+    the batches and model FLOP/s (``model_flops``: the reference's count,
+    B times a retrieval cell's for B users). Returns the results and the
+    steps' closures for the profiler."""
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.models.recsys import model_flops
+    from repro_torch.train.step import make_recsys_retrieval_step
+
+    cells = {c.name: c for c in RECSYS_SHAPES}
     rng = np.random.default_rng(seed + 2)
-    serve = make_recsys_serve_step(cfg)
+    serve = serve_step(cfg)
     retrieve = make_recsys_retrieval_step(cfg, k=RETRIEVAL_K)
-    items = make_items(dev, SPEC.cell("retrieval_cand").n_candidates, cfg, seed + 3)
+    items = make_items(dev, cells["retrieval_cand"].n_candidates, cfg, seed + 3)
     n = items["item_embs"].shape[0]
     out, last = {}, {}
 
-    def timed(label, fn, b, n_batches):
+    def timed(label, cell, fn, b, n_batches):
         lat = []
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         for i in range(n_batches + 1):
             batch = recsys_batch(rng, cfg, b, dev)
             torch.cuda.synchronize()
@@ -2969,21 +3043,39 @@ def run_recsys_path(dev, cfg, params, seed: int, reps: int = 20):
             torch.cuda.synchronize()
             if i:
                 lat.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
         med = statistics.median(lat)
+        flops = model_flops(cfg, cell) * (b if cell.kind == "retrieval" else 1)
         out[label] = dict(batch=b, median_ms=med, min_ms=min(lat), max_ms=max(lat),
-                          batches=n_batches, examples_per_s=b / med * 1e3)
+                          batches=n_batches, examples_per_s=b / med * 1e3,
+                          peak_gb=peak / 1e9, peak_over_resident_gb=(peak - resident) / 1e9,
+                          model_flops=flops, model_tflops_per_s=flops / med / 1e9)
         last[label] = batch
         log(f"  {label:22s} B={b:<6d} median {med:.3f} ms (min {min(lat):.3f}, max "
-            f"{max(lat):.3f}, {n_batches} batches), {b / med * 1e3:.0f} examples/s")
+            f"{max(lat):.3f}, {n_batches} batches), {b / med * 1e3:.0f} examples/s, peak "
+            f"{peak / 1e9:.3f} GB ({(peak - resident) / 1e9:.3f} over the resident), model "
+            f"{flops / med / 1e9:.3f} TFLOP/s ({100 * flops / med * 1e3 / PEAK_BF16_FLOPS:.3f}% "
+            f"of the bf16 peak, {100 * flops / med * 1e3 / PEAK_F32_FLOPS:.3f}% of the f32)")
         return res
 
-    for cell, n_batches in (("serve_p99", reps), ("serve_bulk", 5)):
-        b = SPEC.cell(cell).global_batch
-        logits = timed(cell, lambda bt: serve(params, bt), b, n_batches)
-        if tuple(logits.shape) != (b,) or not bool(torch.isfinite(logits).all()):
-            raise SystemExit(f"{cell}: logits not finite of shape ({b},)")
+    for name, n_batches in (("serve_p99", reps), ("serve_bulk", bulk_batches)):
+        b = cells[name].global_batch
+        res = timed(name, cells[name], lambda bt: serve(params, bt), b, n_batches)
+        if cfg.kind == "bert4rec":
+            scores, ids = (t.cpu() for t in res)
+            if tuple(ids.shape) != (b, RETRIEVAL_K) or not bool(
+                    ((ids >= 0) & (ids < cfg.n_items)).all()):
+                raise SystemExit(f"{name}: ids not (B, {RETRIEVAL_K}) in [0, {cfg.n_items})")
+            if not bool(torch.isfinite(scores).all()) or not bool(
+                    (scores[:, 1:] <= scores[:, :-1]).all()):
+                raise SystemExit(f"{name}: scores not finite and descending")
+            # the scoring of every item, which the reference's count leaves out
+            out[name]["scoring_flops"] = 2.0 * b * cfg.embed_dim * cfg.n_items
+        elif tuple(res.shape) != (b,) or not bool(torch.isfinite(res).all()):
+            raise SystemExit(f"{name}: logits not finite of shape ({b},)")
     for label, b, n_batches in (("retrieval_cand", 1, reps), ("retrieval B=512", 512, 3)):
-        dist, ids = timed(label, lambda bt: retrieve(params, {**bt, **items}), b, n_batches)
+        dist, ids = timed(label, cells["retrieval_cand"],
+                          lambda bt: retrieve(params, {**bt, **items}), b, n_batches)
         dist, ids = dist.cpu(), ids.cpu()
         if tuple(ids.shape) != (b, RETRIEVAL_K) or not bool(((ids >= 0) & (ids < n)).all()):
             raise SystemExit(f"{label}: ids not (B, {RETRIEVAL_K}) in [0, {n})")
@@ -2996,6 +3088,158 @@ def run_recsys_path(dev, cfg, params, seed: int, reps: int = 20):
         "retrieval B=512": lambda: retrieve(params, {**last["retrieval B=512"], **items}),
     }
     return out, calls
+
+
+def reference_param_count(cfg) -> int:
+    """The number of parameters the reference's init_params draws for a
+    dlrm, xdeepfm or bert4rec config, in closed form."""
+    def mlp(dims):
+        return sum(a * b + b for a, b in zip(dims, dims[1:]))
+
+    f, v, d = cfg.n_sparse, cfg.vocab_per_field, cfg.embed_dim
+    if cfg.kind == "bert4rec":  # wq wk wv wo, w1 w2, b1 b2, ln1 ln2 a block
+        block = 4 * d * d + 8 * d * d + 4 * d + d + 2 * d
+        return cfg.n_items * d + cfg.seq_len * d + cfg.n_blocks * block + 2 * d
+    if cfg.kind == "dlrm":
+        n_int = (f + 1) * f // 2
+        return (f * v * d + mlp([cfg.n_dense, *cfg.bot_mlp])
+                + mlp([cfg.bot_mlp[-1] + n_int, *cfg.top_mlp]))
+    hs = [f, *cfg.cin_layers]  # xdeepfm: tables, CIN, cin_out, DNN, linear
+    return (f * v * d + sum(hs[i] * f * hs[i + 1] for i in range(len(cfg.cin_layers)))
+            + sum(cfg.cin_layers) + mlp([f * d, *cfg.mlp, 1]) + f * v)
+
+
+def check_close(got, want, tol: float, label: str) -> float:
+    """Card against CPU: max|Δ| ≤ tol·max|cpu|. Returns max|Δ| / max|cpu|."""
+    g, w = got.float().cpu(), want.float()
+    rel = float((g - w).abs().max()) / (float(w.abs().max()) or 1.0)
+    if rel > tol:
+        raise SystemExit(f"{label}: the card differs from the CPU by {rel:.3e} of max|cpu| "
+                         f"(tolerance {tol})")
+    return rel
+
+
+def check_model_small(dev, spec, cut: dict, seed: int) -> dict:
+    """Phase 5: one recsys model at full width with a cut vocabulary, the
+    card against the CPU with the same parameters, under FP32 and MIXED
+    (within MODEL_TOL): the serve step at B = 512 (bert4rec:
+    bert4rec_serve_topk, k = 100, and on the card its chunks of
+    TOPK_CHUNKS against each other on 16 histories); the user tower and
+    make_recsys_retrieval_step at B = 16 against CUT_ITEMS items, k = 100,
+    topk_shards 1 and 4 (check_topk). Where the tower runs in bf16
+    (bert4rec under MIXED), the CPU's head scores the card's user vectors."""
+    from repro_torch.models import common
+    from repro_torch.models.recsys import (
+        bert4rec_serve_topk, hybrid_retrieval_topk, init_params, user_tower,
+    )
+    from repro_torch.train.step import make_recsys_retrieval_step
+
+    out = {}
+    for prec in ("FP32", "MIXED"):
+        cfg = dataclasses.replace(spec.make_config(), precision=getattr(common, prec), **cut)
+        tol = MODEL_TOL[prec]
+        cpu_params = init_params(cfg, seed=seed, device="cpu")
+        card_params = tree_to(cpu_params, dev)
+        batch = recsys_batch(np.random.default_rng(seed + 7), cfg, 512, dev)
+        cpu_batch = {k: v.cpu() for k, v in batch.items()}
+        serve = serve_step(cfg)
+        got, want = serve(card_params, batch), serve(cpu_params, cpu_batch)
+        r = {}
+        if cfg.kind == "bert4rec":  # scores within tol·max|cpu|
+            atol = tol * float(want[0].abs().max())
+            r["serve_ids_equal"] = check_topk(got, want, f"{spec.arch_id} {prec} serve", 0.0, atol)
+            runs = [bert4rec_serve_topk(cfg, card_params, batch["items"][:16], k=RETRIEVAL_K,
+                                        batch_chunk=c) for c in TOPK_CHUNKS]
+            r["chunk_ids_equal"] = min(
+                check_topk(run, runs[0], f"{spec.arch_id} {prec} chunks", 0.0,
+                           tol * float(runs[0][0].abs().max())) for run in runs[1:])
+            r["chunks_bitwise"] = all(torch.equal(run[1], runs[0][1]) for run in runs[1:])
+        else:
+            if got.dtype != want.dtype:
+                raise SystemExit(f"{spec.arch_id} {prec}: logits {got.dtype} on the card, "
+                                 f"{want.dtype} on the CPU")
+            r["serve_max_rel_err"] = check_close(got, want, tol, f"{spec.arch_id} {prec} serve")
+            r["serve_bitwise"] = bool(torch.equal(got.cpu(), want))
+        users = {k: v[:16] for k, v in batch.items()}
+        cpu_users = {k: v[:16] for k, v in cpu_batch.items()}
+        card_u = user_tower(cfg, card_params, users)
+        r["tower_max_rel_err"] = check_close(card_u, user_tower(cfg, cpu_params, cpu_users), tol,
+                                             f"{spec.arch_id} {prec} user tower")
+        items = make_items(dev, CUT_ITEMS, cfg, seed + 6)
+        cpu_items = {k: v.cpu() for k, v in items.items()}
+        for shards in (1, 4):
+            step = make_recsys_retrieval_step(cfg, k=RETRIEVAL_K, topk_shards=shards)
+            got_r = step(card_params, {**users, **items})
+            if cfg.kind == "bert4rec" and prec == "MIXED":
+                want_r = hybrid_retrieval_topk(card_u.cpu(), cpu_users["query_attrs"],
+                                               cpu_items["item_embs"], cpu_items["item_attrs"],
+                                               RETRIEVAL_K, topk_shards=shards)
+            else:
+                want_r = step(cpu_params, {**cpu_users, **cpu_items})
+            r[f"retrieval_shards{shards}_ids_equal"] = check_topk(
+                got_r, want_r, f"{spec.arch_id} {prec} retrieval shards={shards}")
+        log(f"  {spec.arch_id} {prec} cut vocabulary {cut}: " + ", ".join(
+            f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}" for k, v in r.items()))
+        out[prec] = r
+    return out
+
+
+def tree_to(tree, dev):
+    """A nested dict of tensors moved to ``dev``."""
+    return {k: tree_to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+def recsys_model_step(dev, arch: str, cut: dict, seed: int, drive) -> tuple[dict, dict, dict]:
+    """Phase 5, one recsys model at full width: its parameters drawn on the
+    card from ``seed`` (the count held to the reference's formula); the
+    card against the CPU at the cut vocabulary ``cut``; at M = 64 (dlrm-rm2,
+    bert4rec) fused_auto on its user vectors against 1M items
+    (``check_fused_retrieval``; M = 10 is fm's shape); the serve and
+    retrieval steps timed under ``drive`` (a run where fused_auto is never
+    launched fails) and profiled once each; then the parameters freed.
+    Returns (results, launches, the fused_auto rows or {})."""
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.common import tree_bytes
+    from repro_torch.models.recsys import init_params, user_tower
+
+    spec = get_arch(arch)
+    cfg = spec.make_config()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    out = {"params": cfg.param_count, "reference_formula": reference_param_count(cfg),
+           "param_gb": tree_bytes(params) / 1e9, "init_s": time.perf_counter() - t0}
+    log(f"  {arch}: {out['params']} parameters ({out['param_gb']:.3f} GB) drawn on the card in "
+        f"{out['init_s']:.2f} s; the reference's formula gives {out['reference_formula']}")
+    if out["params"] != out["reference_formula"]:
+        raise SystemExit(f"{arch}: {out['params']} parameters, the reference's formula "
+                         f"{out['reference_formula']}")
+    t0 = time.perf_counter()
+    out["cut_vocab"] = check_model_small(dev, spec, cut, seed)
+    out["cut_vocab_s"] = time.perf_counter() - t0
+    row = {}
+    if cfg.embed_dim == 64:
+        rng = np.random.default_rng(seed + 4)
+        n = {c.name: c for c in RECSYS_SHAPES}["retrieval_cand"].n_candidates
+        items = make_items(dev, n, cfg, seed + 3)
+
+        def users(b):
+            batch = recsys_batch(rng, cfg, b, dev)
+            return user_tower(cfg, params, batch), batch["query_attrs"]
+
+        row = check_fused_retrieval(users, items["item_embs"], items["item_attrs"],
+                                    f"{arch} retrieval")
+        del items
+    (out["steps"], calls), launches = drive(run_recsys_path, ("fused_auto",), dev, cfg, params,
+                                            seed, 20, 2)
+    # no warm-up: each step just ran (bert4rec's serve_bulk takes ≈ 6 s a call)
+    out["profiles"] = {label: profile_call(f"{arch} {label}", fn, warmup=False)
+                       for label, fn in calls.items()}
+    del params, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches, row
 
 
 def main(argv=None) -> int:
@@ -3166,12 +3410,24 @@ def main(argv=None) -> int:
     recsys_small = check_recsys_small(dev, args.seed)
     (recsys_out, calls), recsys_launches = drive(
         run_recsys_path, ("fm_interaction", "fused_auto"), dev, fm_cfg, fm_params, args.seed)
-    launches = {k: exact_launches[k] + serve_launches[k] + quant_launches[k] + part_launches[k]
-                + tier_launches[k] + shard_launches[k] + mut_launches[k] + recsys_launches[k]
-                for k in wrappers}
     profiles.update({f"recsys/{label}": profile_call(label, fn) for label, fn in calls.items()})
     del fm_params, calls
     torch.cuda.empty_cache()
+    # the other recsys models, one at a time, each freed before the next
+    models_out, models_launches, m64 = {}, dict.fromkeys(wrappers, 0), {}
+    for arch, cut in RECSYS_MODELS:
+        log(f"[5] recsys model {arch} at full width")
+        t0 = time.perf_counter()
+        models_out[arch], model_launches, row = recsys_model_step(dev, arch, cut, args.seed, drive)
+        models_out[arch]["step_s"] = time.perf_counter() - t0
+        log(f"  {arch} step: {models_out[arch]['step_s']:.2f} s")
+        for k in wrappers:
+            models_launches[k] += model_launches[k]
+        if row:
+            m64[arch] = row
+    launches = {k: exact_launches[k] + serve_launches[k] + quant_launches[k] + part_launches[k]
+                + tier_launches[k] + shard_launches[k] + mut_launches[k] + recsys_launches[k]
+                + models_launches[k] for k in wrappers}
     # one more build, profiled (no warm-up: the kernels ran in the first).
     # Last of all: after its many thousand launches the profiler drops the
     # events of later profiles.
@@ -3192,6 +3448,7 @@ def main(argv=None) -> int:
                            "src/repro/kernels/fm_interaction/fm_interaction.py:34"),
     }
     kern["fused_auto"]["retrieval"] = kern.pop("fused_auto_retrieval")
+    kern["fused_auto"]["retrieval_m64"] = m64
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": kern[name]["max_abs_err"],
@@ -3201,7 +3458,8 @@ def main(argv=None) -> int:
          "library_ms": kern[name]["library_ms"], "shape": kern[name]["shape"],
          "worst_err_over_tol": kern[name]["worst_err_over_tol"],
          "bitwise_batch_invariant": kern[name]["bitwise_batch_invariant"],
-         **{k: kern[name][k] for k in ("serve_p99", "retrieval", "auto_ms", "auto_device_ms",
+         **{k: kern[name][k] for k in ("serve_p99", "retrieval", "retrieval_m64", "auto_ms",
+                                       "auto_device_ms",
                                        "tiles", "fused_auto_exact_cases",
                                        "fused_auto_many_attrs_cases",
                                        "fused_auto_rows_equal_single_calls", "l2_device_ms",
@@ -3222,6 +3480,7 @@ def main(argv=None) -> int:
                                      "tiered": tier_out, "sharded": shard_out,
                                      "mutable": mut_out,
                                      "recsys": recsys_out, "recsys_cut_vocab": recsys_small,
+                                     "recsys_models": models_out,
                                      "profiles": profiles, "small_input": small,
                                      "launches": {"exact": exact_launches,
                                                   "serve": serve_launches,
@@ -3230,11 +3489,13 @@ def main(argv=None) -> int:
                                                   "tiered": tier_launches,
                                                   "sharded": shard_launches,
                                                   "mutable": mut_launches,
-                                                  "recsys": recsys_launches},
+                                                  "recsys": recsys_launches,
+                                                  "recsys_models": models_launches},
                                      "gather_descent_block": kern["gather_auto"]["descent_block"],
                                      "gather_narrow_block": kern["gather_auto"]["narrow_block"],
                                      "fm_serve_p99": kern["fm_interaction"]["serve_p99"],
-                                     "fused_auto_retrieval": kern["fused_auto"]["retrieval"]}))
+                                     "fused_auto_retrieval": kern["fused_auto"]["retrieval"],
+                                     "fused_auto_retrieval_m64": m64}))
     log(gpu_line())
     log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

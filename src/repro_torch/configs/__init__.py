@@ -1,2 +1,2 @@
-"""Architecture configs. Only the ``fm`` recsys config is ported; the
-registry names the ROADMAP item of every other id of the reference."""
+"""Architecture configs. The four recsys configs are ported; the registry
+names the ROADMAP item of every LM and GNN id of the reference."""

@@ -30,6 +30,37 @@ def smallest_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+#: rows a block that ``largest_k`` sorts in full when its k-th value ties
+#: past the cut: (64, 1M) f32 values and int64 indices take 768 MB
+TIE_SORT_ROWS = 64
+
+
+def largest_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest entries of each row of a 2-D
+    ``x``, descending, ties to the lower index: ``lax.top_k(x, k)``.
+
+    Without a full sort of every row: ``torch.topk`` takes k + 1. Where the
+    (k+1)-th value is below the k-th, the k chosen are the only candidates
+    and only their order is repaired (index, then a stable sort by value).
+    Rows where the k-th value ties past the cut are sorted in full
+    (stably, ``TIE_SORT_ROWS`` at a time). That takes one synchronisation
+    on the card."""
+    n = x.shape[1]
+    if k >= n:
+        return torch.sort(x, dim=1, descending=True, stable=True)
+    vals, idx = torch.topk(x, k + 1, dim=1)
+    tied = (vals[:, k] == vals[:, k - 1]).nonzero()[:, 0]
+    vals, idx = vals[:, :k], idx[:, :k]
+    for r0 in range(0, tied.numel(), TIE_SORT_ROWS):
+        rows = tied[r0:r0 + TIE_SORT_ROWS]
+        sv, si = torch.sort(x[rows], dim=1, descending=True, stable=True)
+        vals[rows], idx[rows] = sv[:, :k], si[:, :k]
+    order = idx.argsort(dim=1)  # indices are distinct: any sort is stable
+    vals, idx = vals.gather(1, order), idx.gather(1, order)
+    order = torch.sort(vals, dim=1, descending=True, stable=True).indices
+    return vals.gather(1, order), idx.gather(1, order)
+
+
 def lexsort(keys: list[torch.Tensor]) -> torch.Tensor:
     """``jnp.lexsort(keys, axis=-1)``: the last key is primary; remaining
     ties keep their original order."""

@@ -11,8 +11,9 @@ two are mutually exclusive. The build runs on the CUDA card unless
 ``--device cpu`` asks for the kernels' plain PyTorch versions.
 
 The reference's module of the same name also holds the cell builder of its
-LM, GNN and recsys training cells (``build_cell``); that part waits for
-the models it builds (ROADMAP.md queue 1, items 13–16).
+LM, GNN and recsys cells (``build_cell``), JAX sharding and dry-run
+machinery; that part waits for the LM and GNN models (ROADMAP.md queue 1,
+item 16). The recsys cells' FLOP count is ``models.recsys.model_flops``.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.build --device cpu --n 2048 \\

@@ -1,9 +1,12 @@
-"""Serve-step builders of the recsys family.
+"""The serve steps of the recsys family, for every kind (dlrm, xdeepfm,
+bert4rec, fm).
 
 Each builder returns ``step(params, batch)``, the reference's signature.
 PyTorch runs eagerly, so a step is a plain function; it runs on the device
-the parameters lie on. The training builders come with the training slice
-(ROADMAP.md queue 1, item 15).
+the parameters lie on. bert4rec serves its next-item top-k through
+``models.recsys.bert4rec_serve_topk``, as the reference's ``build_cell``
+does. The training steps come with the training slice (ROADMAP.md queue
+1, item 15).
 """
 from __future__ import annotations
 
@@ -11,7 +14,9 @@ from repro_torch.models import recsys as recsys_mod
 
 
 def make_recsys_serve_step(cfg: recsys_mod.RecsysConfig):
-    """CTR logits (B,) of ``batch["sparse"]`` (B, F) ids."""
+    """``forward``'s logits: (B,) CTR logits of ``batch["sparse"]`` (B, F)
+    ids (and ``batch["dense"]`` for dlrm), or bert4rec's (B, S, n_items)
+    masked-item logits of ``batch["items"]``."""
 
     def step(params, batch):
         return recsys_mod.forward(cfg, params, batch)

@@ -9,7 +9,9 @@ Each kernel is held against its plain version on the same card tensors
 + 1e-6·|ref|; adc_scan, adc_scan4 and fm_interaction bit for bit), must be
 bitwise batch-invariant, and a search on integer-valued data must equal the
 CPU's plain-version search bit for bit, exact and quantized. The fm serve
-and retrieval steps on the card must agree with the CPU's. A serve_loop
+and retrieval steps on the card must agree with the CPU's, and so must the
+dlrm-rm2, xdeepfm and bert4rec steps at full width with a cut vocabulary
+(|Δ| ≤ 1e-5·max|cpu| under FP32, 0.03·max|cpu| under MIXED). A serve_loop
 trace on the card returns, for every request, what its query returns
 searched alone, bit for bit, on both backends. A merge of the mutable
 engine on the card gives the CPU's adjacency (and codes, for pq and pq4)
@@ -415,6 +417,98 @@ def test_fm_serve_and_retrieval_steps_on_card_match_cpu(cuda_dev):
             near[p] = False
             assert bool(near.any())
     assert fused_auto.launches == f0 + 2
+
+
+@pytest.mark.parametrize("mode", ["auto", "l2"])
+@pytest.mark.parametrize("b", [1, 5, 512])
+def test_fused_auto_at_the_m64_retrieval_shape(cuda_dev, mode, b):
+    """M = 64, L = 4: the dlrm-rm2 and bert4rec user width (float4 loads)."""
+    qv, xv, qa, xa, iv, mask, cand = inputs(b, 20011, 64, 4, seed=b + 64, dev=cuda_dev)
+    got = fused_auto(qv, qa, xv, xa, 1.0, mode)
+    fr = fused_auto_ref(qv, qa, xv, xa, 1.0, mode).double()
+    pen2 = 1.0
+    if mode == "auto":
+        pen2 = (1.0 + penalty_sa(qa, xa[None].expand(b, -1, -1), None).double()) ** 2
+    norms = (qv.double() ** 2).sum(1)[:, None] + (xv.double() ** 2).sum(1)[None, :]
+    tol = (1e-5 * norms + 1e-6) * pen2 + 1e-6 * fr.abs()
+    assert bool(((got.double() - fr).abs() <= tol).all())
+    for r in (0, b - 1):
+        assert torch.equal(fused_auto(qv[r:r + 1].contiguous(), qa[r:r + 1].contiguous(), xv, xa,
+                                      1.0, mode)[0], got[r])
+
+
+#: the recsys models at full width with a cut vocabulary (bert4rec: items)
+RECSYS_CUT = {"dlrm-rm2": {"vocab_per_field": 1000}, "xdeepfm": {"vocab_per_field": 1000},
+              "bert4rec": {"n_items": 20000}}
+#: |Δ| ≤ tol·max|cpu|: f32 sums in other orders; bf16 steps of 2^-8 carried
+#: through the layers (tests/test_torch_recsys_models.py states both)
+RECSYS_TOL = {"FP32": 1e-5, "MIXED": 0.03}
+
+
+@pytest.mark.parametrize("prec", ["FP32", "MIXED"])
+@pytest.mark.parametrize("arch", sorted(RECSYS_CUT))
+def test_recsys_model_steps_on_card_match_cpu(cuda_dev, arch, prec):
+    """The same parameters on the card and the CPU: dlrm and xdeepfm
+    logits (in the same dtype) and bert4rec_serve_topk's scores within the
+    tolerance, its ids equal except at near-ties within it; the user tower
+    too; the retrieval step launches fused_auto once and, with the CPU's
+    head on the card's user vectors, gives the CPU's top-k (sq-dists rtol
+    1e-5, atol 1e-6, ids except near-ties)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import common
+
+    cfg = dataclasses.replace(get_arch(arch).make_config(), precision=getattr(common, prec),
+                              **RECSYS_CUT[arch])
+    tol = RECSYS_TOL[prec]
+    cpu = recsys.init_params(cfg, seed=1, device="cpu")
+    card = {k: ({kk: vv.to(cuda_dev) for kk, vv in v.items()} if isinstance(v, dict)
+                else v.to(cuda_dev)) for k, v in cpu.items()}
+    rng = np.random.default_rng(1)
+    b = 64
+    if cfg.kind == "bert4rec":
+        batch = {"items": rng.integers(-cfg.n_items, cfg.n_items, (b, cfg.seq_len))}
+    else:
+        batch = {"sparse": rng.integers(-1000, 1000, (b, cfg.n_sparse))}
+        if cfg.n_dense:
+            batch["dense"] = rng.normal(size=(b, cfg.n_dense)).astype(np.float32)
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    on_card = {k: v.to(cuda_dev) for k, v in batch.items()}
+
+    def close(got, want):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        scale = float(want.float().abs().max())
+        assert float((got.float().cpu() - want.float()).abs().max()) <= tol * scale
+
+    if cfg.kind == "bert4rec":
+        cd, ci = (t.cpu() for t in recsys.bert4rec_serve_topk(cfg, card, on_card["items"], k=100,
+                                                              batch_chunk=16))
+        pd, pi = recsys.bert4rec_serve_topk(cfg, cpu, batch["items"], k=100, batch_chunk=16)
+        close(cd, pd)
+        atol = tol * float(pd.abs().max())
+        for r, p in zip(*torch.nonzero(ci != pi, as_tuple=True)):
+            near = (pd[r] - pd[r, p]).abs() <= 2 * atol
+            near[p] = False
+            assert bool(near.any())
+    else:
+        close(make_recsys_serve_step(cfg)(card, on_card), make_recsys_serve_step(cfg)(cpu, batch))
+    users = recsys.user_tower(cfg, card, on_card)
+    close(users, recsys.user_tower(cfg, cpu, batch))
+    items = {"item_embs": (rng.normal(size=(20000, cfg.embed_dim)) * 0.0625).astype(np.float32),
+             "item_attrs": rng.integers(0, 3, (20000, 4)).astype(np.int32)}
+    qa = rng.integers(0, 3, (b, 4)).astype(np.int32)
+    f0 = fused_auto.launches
+    cd, ci = (t.cpu() for t in make_recsys_retrieval_step(cfg, k=100, topk_shards=4)(
+        card, {**on_card, "query_attrs": torch.from_numpy(qa).to(cuda_dev),
+               **{k: torch.from_numpy(v).to(cuda_dev) for k, v in items.items()}}))
+    assert fused_auto.launches == f0 + 1
+    pd, pi = recsys.hybrid_retrieval_topk(users.cpu(), qa, items["item_embs"], items["item_attrs"],
+                                          100, topk_shards=4)
+    torch.testing.assert_close(cd, pd, rtol=1e-5, atol=1e-6)
+    tie = 1e-6 + 1e-5 * pd.abs()
+    for r, p in zip(*torch.nonzero(ci != pi, as_tuple=True)):
+        near = (pd[r] - pd[r, p]).abs() <= 2 * tie[r, p]
+        near[p] = False
+        assert bool(near.any())
 
 
 @pytest.mark.parametrize("backend", ["graph", "brute"])

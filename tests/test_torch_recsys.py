@@ -24,13 +24,19 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.configs import base as jbase  # noqa: E402
+from repro.configs import bert4rec as jbert  # noqa: E402
+from repro.configs import dlrm_rm2 as jdlrm  # noqa: E402
 from repro.configs import fm as jfm  # noqa: E402
 from repro.configs import registry as jregistry  # noqa: E402
+from repro.configs import xdeepfm as jxdeepfm  # noqa: E402
 from repro.models import recsys as jrecsys  # noqa: E402
 from repro.train import step as jstep  # noqa: E402
 from repro_torch.configs import base as tbase  # noqa: E402
+from repro_torch.configs import bert4rec as tbert  # noqa: E402
+from repro_torch.configs import dlrm_rm2 as tdlrm  # noqa: E402
 from repro_torch.configs import fm as tfm  # noqa: E402
-from repro_torch.configs.registry import NOT_PORTED, get_arch  # noqa: E402
+from repro_torch.configs import xdeepfm as txdeepfm  # noqa: E402
+from repro_torch.configs.registry import ARCHS, NOT_PORTED, get_arch  # noqa: E402
 from repro_torch.kernels.fm_interaction.ops import fm_interaction  # noqa: E402
 from repro_torch.models import recsys as trecsys  # noqa: E402
 from repro_torch.train import step as tstep  # noqa: E402
@@ -185,32 +191,57 @@ def test_init_params_is_seeded_and_scaled():
 
 
 def test_configs_match_reference():
-    for name in ("make_config", "make_reduced"):
-        j, t = getattr(jfm, name)(), getattr(tfm, name)()
-        jd, td = dataclasses.asdict(j), dataclasses.asdict(t)
-        jd.pop("precision"), td.pop("precision")
-        assert jd == td
+    """All four recsys configs, their shape cells and optimizer settings."""
+    for jmod, tmod in ((jfm, tfm), (jdlrm, tdlrm), (jxdeepfm, txdeepfm), (jbert, tbert)):
+        for name in ("make_config", "make_reduced"):
+            j, t = getattr(jmod, name)(), getattr(tmod, name)()
+            jd, td = dataclasses.asdict(j), dataclasses.asdict(t)
+            jd.pop("precision"), td.pop("precision")
+            assert jd == td
+        assert dataclasses.asdict(tmod.SPEC.optim) == dataclasses.asdict(jmod.SPEC.optim)
+        assert tmod.SPEC.cell("retrieval_cand").n_candidates == 1_000_000
+        assert get_arch(tmod.SPEC.arch_id) is tmod.SPEC
     assert [dataclasses.asdict(c) for c in tbase.RECSYS_SHAPES] == \
         [dataclasses.asdict(c) for c in jbase.RECSYS_SHAPES]
-    assert dataclasses.asdict(tfm.SPEC.optim) == dataclasses.asdict(jfm.SPEC.optim)
-    assert tfm.SPEC.cell("retrieval_cand").n_candidates == 1_000_000
-    assert get_arch("fm") is tfm.SPEC
 
 
-@pytest.mark.parametrize("arch_id", sorted(set(jregistry.ARCHS) - {"fm"}))
+RECSYS_IDS = sorted(a for a, spec in jregistry.ARCHS.items() if spec.family == "recsys")
+
+
+@pytest.mark.parametrize("arch_id", sorted(set(jregistry.ARCHS) - set(RECSYS_IDS)))
 def test_unported_arch_raises_naming_its_roadmap_item(arch_id):
     assert arch_id in NOT_PORTED
-    with pytest.raises(KeyError, match="ROADMAP.md queue 1, item"):
+    with pytest.raises(KeyError, match="ROADMAP.md queue 1, item 16"):
         get_arch(arch_id)
 
 
+@pytest.mark.parametrize("arch_id", sorted(set(RECSYS_IDS) - {"fm"}))
+def test_get_arch_returns_the_ported_recsys_spec(arch_id):
+    spec = get_arch(arch_id)
+    ref = jregistry.get_arch(arch_id)
+    assert arch_id not in NOT_PORTED and spec.family == "recsys"
+    assert (spec.arch_id, spec.source) == (ref.arch_id, ref.source)
+    assert spec.make_config().kind == ref.make_config().kind
+    assert [c.name for c in spec.shapes] == [c.name for c in ref.shapes]
+
+
+def test_registry_holds_every_recsys_id():
+    assert sorted(ARCHS) == RECSYS_IDS
+    assert set(ARCHS) | set(NOT_PORTED) == set(jregistry.ARCHS)
+
+
 def test_unported_kinds_raise():
-    cfg = trecsys.RecsysConfig(name="d", kind="dlrm")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    """Every recsys kind of the reference is ported: only a kind the
+    reference does not have raises (``ValueError``, as the reference's),
+    and an unknown arch id ``KeyError``."""
+    cfg = trecsys.RecsysConfig(name="d", kind="wide-and-deep")
+    with pytest.raises(ValueError, match="unknown recsys kind"):
         trecsys.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="unknown recsys kind"):
         trecsys.forward(cfg, {}, {})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        trecsys.user_tower(dataclasses.replace(cfg, kind="bert4rec"), {}, {})
+    with pytest.raises(ValueError, match="unknown recsys kind"):
+        trecsys.user_tower(cfg, {}, {})
+    for spec in ARCHS.values():
+        assert trecsys.abstract_params(spec.make_reduced())
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
