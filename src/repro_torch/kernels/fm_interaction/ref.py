@@ -4,8 +4,9 @@ ICDM'10).
     second_order(E) = ½ Σ_d [ (Σ_f e_fd)² − Σ_f e_fd² ]   for E (B, F, D)
 
 ``fm_interaction_ref`` is the O(F·D) sum-square trick in a fixed order:
-``s`` and ``sq`` sum over f = 0 … F−1, one rounded add a field (the square
-rounded first); ``t_d = s_d·s_d − sq_d``; the output sums ``t_d`` over
+``s`` and ``sq`` sum over f = 0 … F−1, one rounded add a field
+(``field_sum``; the square rounded first); ``t_d = s_d·s_d − sq_d``; the
+output sums ``t_d`` over
 d = 0 … D−1, one add a term, then multiplies by 0.5. Every step is its own
 PyTorch op, so nothing is contracted into an fma, and the CUDA kernel
 (``csrc/fm_interaction.cu``) repeats the same steps: the two agree bit for
@@ -17,17 +18,22 @@ from __future__ import annotations
 import torch
 
 
+def field_sum(e: torch.Tensor) -> torch.Tensor:
+    """(B, D) Σ_f e_fd of (B, F, D), over f = 0 … F−1 from +0, one rounded
+    add a field. The backward of ``ops.fm_interaction`` sums in this order
+    too."""
+    s = torch.zeros((e.shape[0], e.shape[2]), dtype=e.dtype, device=e.device)
+    for i in range(e.shape[1]):
+        s = s + e[:, i, :]
+    return s
+
+
 def fm_interaction_ref(emb: torch.Tensor) -> torch.Tensor:
     """(B,) f32 second-order term of (B, F, D) field embeddings."""
     e = emb.to(torch.float32)
-    b, f, d = e.shape
-    s = torch.zeros((b, d), dtype=torch.float32, device=e.device)
-    sq = torch.zeros_like(s)
-    for i in range(f):
-        x = e[:, i, :]
-        s = s + x
-        sq = sq + x * x
-    t = s * s - sq
+    b, _, d = e.shape
+    s = field_sum(e)
+    t = s * s - field_sum(e * e)
     acc = torch.zeros((b,), dtype=torch.float32, device=e.device)
     for j in range(d):
         acc = acc + t[:, j]

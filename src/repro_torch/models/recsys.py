@@ -5,7 +5,8 @@ shape through the paper's STABLE scorer.
 Tables are stacked (F, V, D) and looked up with one gather over the
 flattened (F·V, D) table; multi-hot bags reduce over their hot axis and
 ragged bags sum with ``index_add_``. The FM forward's second-order term
-runs the ``fm_interaction`` kernel on the card. The dlrm, xdeepfm and
+runs the ``fm_interaction`` kernel on the card, through an autograd
+``Function`` whose backward is plain PyTorch. The dlrm, xdeepfm and
 bert4rec forwards compute nothing inside a Pallas kernel in the reference
 (MLPs, einsums, a CIN and a two-block encoder), so they are plain PyTorch
 here, in the compute dtype of ``cfg.precision`` as the reference computes
@@ -14,8 +15,10 @@ candidate with the fused AUTO metric (``core.auto.brute_fused_sqdist``, the
 ``fused_auto`` kernel on the card) and keeps an exact top-k, in one stage or
 as a two-stage merge over shards of the candidate axis.
 
-Training (the optimizers, ``loss_fn``, ``bert4rec_sampled_loss``) comes
-with ROADMAP.md queue 1, item 15.
+Training: ``loss_fn`` (BCE on the CTR logits; bert4rec's shared-negative
+sampled softmax, ``bert4rec_sampled_loss``) under autograd. The tables'
+gradients are dense, as the reference's are: ``index_select``'s backward
+adds into a zero (F·V, D) table, and the optimizer decays every row.
 """
 from __future__ import annotations
 
@@ -461,6 +464,28 @@ def _bert4rec_forward(cfg: RecsysConfig, p: dict, batch: dict) -> Tensor:
     return h.float() @ p["item_embed"].float().T
 
 
+def bert4rec_sampled_loss(cfg: RecsysConfig, p: dict, batch: dict) -> Tensor:
+    """Masked-item prediction with a sampled softmax over shared negatives:
+    the mean over (B, P) masked positions of logsumexp([s_true, s_neg]) −
+    s_true, in f32. batch: items (B, S), masked_pos (B, P) (positions in
+    [−S, S), negative ones wrap), labels (B, P) and neg_ids (N_neg,) item
+    ids (``embedding_lookup``'s rule)."""
+    h = _bert4rec_encode(cfg, p, batch["items"]).float()  # (B, S, D)
+    dev = h.device
+    pos = _wrap_ids(batch["masked_pos"], h.shape[1], dev)
+    if pos.ndim != 2 or pos.shape[0] != h.shape[0]:
+        raise ValueError(f"masked_pos must be ({h.shape[0]}, P), got {tuple(pos.shape)}")
+    hm = h.gather(1, pos[..., None].expand(-1, -1, h.shape[2]))  # (B, P, D)
+    emb = p["item_embed"].float()
+    labels = _wrap_ids(batch["labels"], emb.shape[0], dev)
+    e_true = emb.index_select(0, labels.reshape(-1)).reshape(*labels.shape, emb.shape[1])
+    e_neg = emb.index_select(0, _wrap_ids(batch["neg_ids"], emb.shape[0], dev).reshape(-1))
+    s_true = (hm * e_true).sum(-1)  # (B, P)
+    s_neg = hm @ e_neg.T  # (B, P, N_neg)
+    all_s = torch.cat([s_true[..., None], s_neg], dim=-1)
+    return (torch.logsumexp(all_s, dim=-1) - s_true).mean()
+
+
 def bert4rec_serve_topk(cfg: RecsysConfig, p: dict, items, k: int = 100,
                         batch_chunk: int = 4096) -> tuple[Tensor, Tensor]:
     """Next-item top-k for a batch of histories: (scores (B, k) f32
@@ -496,6 +521,16 @@ def forward(cfg: RecsysConfig, params: dict, batch: dict) -> Tensor:
     if cfg.kind == "bert4rec":
         return _bert4rec_forward(cfg, params, batch)
     raise _unknown(cfg.kind)
+
+
+def loss_fn(cfg: RecsysConfig, params: dict, batch: dict) -> Tensor:
+    """The training loss, a 0-d f32 tensor: bert4rec's sampled softmax, or
+    the BCE of the CTR logits against ``batch["labels"]`` (B,)."""
+    if cfg.kind == "bert4rec":
+        return bert4rec_sampled_loss(cfg, params, batch)
+    logits = forward(cfg, params, batch)
+    return common.bce_with_logits(logits, to_tensor(batch["labels"], torch.float32,
+                                                    logits.device))
 
 
 # ---------------------------------------------------------------------------

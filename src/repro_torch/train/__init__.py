@@ -1,3 +1,3 @@
-"""Step builders and optimizer settings. The serving steps of the recsys
-family are ported; the training steps and the optimizers come with the
-training slice (ROADMAP.md queue 1)."""
+"""Training for the recsys family: the optimizers (``optim``), the train
+and serve step builders (``step``), the fault-tolerant loop (``loop``) and
+int8 gradient compression (``compress``)."""

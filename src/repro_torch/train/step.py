@@ -1,16 +1,88 @@
-"""The serve steps of the recsys family, for every kind (dlrm, xdeepfm,
-bert4rec, fm).
+"""The train and serve steps of the recsys family, for every kind (dlrm,
+xdeepfm, bert4rec, fm).
 
-Each builder returns ``step(params, batch)``, the reference's signature.
-PyTorch runs eagerly, so a step is a plain function; it runs on the device
-the parameters lie on. bert4rec serves its next-item top-k through
+A train step is ``step(params, opt_state, batch) → (params, opt_state,
+{"loss", "grad_norm"})`` and a serve step ``step(params, batch)``, the
+reference's signatures. PyTorch runs eagerly, so a step is a plain
+function; it runs on the device the parameters lie on. A train step
+updates ``params`` and ``opt_state`` in place and returns them, as the
+reference's step donates them (``train.optim``'s docstring says what a
+caller copies). bert4rec serves its next-item top-k through
 ``models.recsys.bert4rec_serve_topk``, as the reference's ``build_cell``
-does. The training steps come with the training slice (ROADMAP.md queue
-1, item 15).
+does.
 """
 from __future__ import annotations
 
+from functools import partial
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core import tree as tree_mod
 from repro_torch.models import recsys as recsys_mod
+from repro_torch.train import optim as optim_mod
+from repro_torch.train.optim import OptimConfig
+
+PyTree = Any
+
+
+def loss_and_grads(loss_fn: Callable[[PyTree, dict], torch.Tensor], params: PyTree,
+                   batch: dict) -> tuple[torch.Tensor, PyTree]:
+    """(loss, gradients) of ``loss_fn(params, batch)``
+    (``jax.value_and_grad``): the loss detached, the gradients in
+    ``params``' structure, zeros for a parameter the loss does not reach.
+    ``params`` are left as they are: the loss runs on detached aliases of
+    them that require grad."""
+    flat = [p.detach().requires_grad_(True) for p in tree_mod.leaves(params)]
+    with torch.enable_grad():
+        loss = loss_fn(tree_mod.unflatten(params, flat), batch)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+    return loss.detach(), tree_mod.unflatten(params, grads)
+
+
+def _accumulating_step(
+    loss_fn: Callable[[PyTree, dict], torch.Tensor],
+    opt_cfg: OptimConfig,
+    micro_batches: int,
+    split_batch: Callable[[dict, int], dict],
+):
+    """Generic microbatched train step: the gradients of each of
+    ``micro_batches`` slices summed in f32 in slice order (the reference's
+    ``lax.scan``), divided by their count; the loss their mean."""
+
+    def step(params, opt_state, batch):
+        if micro_batches == 1:
+            loss, grads = loss_and_grads(loss_fn, params, batch)
+        else:
+            sliced = split_batch(batch, micro_batches)
+            grads = tree_mod.tree_map(
+                lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+            losses = []
+            for i in range(micro_batches):
+                micro = tree_mod.tree_map(lambda x: x[i], sliced)
+                loss_i, g = loss_and_grads(loss_fn, params, micro)
+                for a, b in zip(tree_mod.leaves(grads), tree_mod.leaves(g)):
+                    a.add_(b.float())
+                losses.append(loss_i)
+                del g
+            for a in tree_mod.leaves(grads):
+                a.div_(micro_batches)
+            loss = torch.stack(losses).mean()
+        new_p, new_s, metrics = optim_mod.apply_updates(opt_cfg, params, grads, opt_state)
+        return new_p, new_s, {"loss": loss, **metrics}
+
+    return step
+
+
+def _split_leading(batch: dict, n: int) -> dict:
+    """Each leaf (B, ...) as (n, B/n, ...)."""
+    return tree_mod.tree_map(lambda x: x.reshape(n, x.shape[0] // n, *x.shape[1:]), batch)
+
+
+def make_recsys_train_step(cfg: recsys_mod.RecsysConfig, opt_cfg: OptimConfig):
+    """``loss_fn``'s gradients and one ``opt_cfg`` update."""
+    return _accumulating_step(partial(recsys_mod.loss_fn, cfg), opt_cfg, 1, _split_leading)
 
 
 def make_recsys_serve_step(cfg: recsys_mod.RecsysConfig):

@@ -11,7 +11,11 @@ bitwise batch-invariant, and a search on integer-valued data must equal the
 CPU's plain-version search bit for bit, exact and quantized. The fm serve
 and retrieval steps on the card must agree with the CPU's, and so must the
 dlrm-rm2, xdeepfm and bert4rec steps at full width with a cut vocabulary
-(|Δ| ≤ 1e-5·max|cpu| under FP32, 0.03·max|cpu| under MIXED). A serve_loop
+(|Δ| ≤ 1e-5·max|cpu| under FP32, 0.03·max|cpu| under MIXED); so must a
+train step's loss and gradients for all four kinds, and ``apply_updates``
+on identical gradients within 1e-6·max|cpu|. fm_interaction's gradient on
+the card equals the CPU's bit for bit, and fm's tables train through it
+(a regression test for a gradient the kernel's result would drop). A serve_loop
 trace on the card returns, for every request, what its query returns
 searched alone, bit for bit, on both backends. A merge of the mutable
 engine on the card gives the CPU's adjacency (and codes, for pq and pq4)
@@ -22,6 +26,7 @@ scored by the same kernel, data=2 equals data=1 and a save and load
 equals the index saved, bit for bit.
 """
 import dataclasses
+import functools
 from types import SimpleNamespace
 
 import numpy as np
@@ -509,6 +514,123 @@ def test_recsys_model_steps_on_card_match_cpu(cuda_dev, arch, prec):
         near = (pd[r] - pd[r, p]).abs() <= 2 * tie[r, p]
         near[p] = False
         assert bool(near.any())
+
+
+#: fm_interaction's gradient: the training shape (train_batch at the fm
+#: widths) and B x F x D around a block's edges
+FM_GRAD_SHAPES = [(65536, 39, 10)] + [(b, f, d) for b in (1, 255, 257) for f in (1, 39)
+                                      for d in (1, 10, 64)]
+
+
+@pytest.mark.parametrize("shape", FM_GRAD_SHAPES, ids=["x".join(map(str, s)) for s in FM_GRAD_SHAPES])
+def test_fm_interaction_gradient_on_card_equals_cpu(cuda_dev, shape):
+    """The autograd ``Function`` on the card: the forward is the kernel
+    (one launch, equal to the plain version bit for bit) and the gradient
+    under a random upstream equals the CPU's bit for bit (the same plain
+    ops in the same order on both devices)."""
+    g = torch.Generator().manual_seed(sum(shape))
+    e = torch.randn(shape, generator=g) * 0.3
+    up = torch.randn(shape[0], generator=g)
+
+    def run(e, up):
+        x = e.clone().requires_grad_(True)
+        out = fm_interaction(x)
+        return out.detach(), torch.autograd.grad(out, x, up)[0]
+
+    n0 = fm_interaction.launches
+    got_out, got_grad = run(e.to(cuda_dev), up.to(cuda_dev))
+    torch.cuda.synchronize()
+    assert fm_interaction.launches == n0 + 1
+    assert torch.equal(got_out, fm_interaction_ref(e.to(cuda_dev)))
+    assert torch.equal(got_grad.cpu(), run(e, up)[1])
+
+
+def test_fm_train_step_on_card_trains_the_tables(cuda_dev):
+    """Regression: the tables enter fm's loss only through fm_interaction,
+    so a zero or missing ``tables`` gradient on the card means the kernel's
+    result dropped out of autograd. The gradient equals the CPU's within
+    1e-5·max|cpu| (scatter-adds on the card sum in another order), and a
+    step moves the touched rows by more than the weight decay."""
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.train.optim import init_state
+    from repro_torch.train.step import loss_and_grads, make_recsys_train_step
+
+    cfg = dataclasses.replace(fm.make_config(), vocab_per_field=1000)
+    cpu = recsys.init_params(cfg, seed=0, device="cpu")
+    card = {k: v.to(cuda_dev) for k, v in cpu.items()}
+    batch = make_batch_fn(fm.SPEC, cfg, 512, 64, cuda_dev)(0)
+    n0 = fm_interaction.launches
+    _, grads = loss_and_grads(functools.partial(recsys.loss_fn, cfg), card, batch)
+    torch.cuda.synchronize()
+    assert fm_interaction.launches == n0 + 1
+    gt = grads["tables"]
+    assert gt is not None and gt.shape == card["tables"].shape and bool(gt.abs().sum() > 0)
+    _, want = loss_and_grads(functools.partial(recsys.loss_fn, cfg), cpu,
+                             {k: v.cpu() for k, v in batch.items()})
+    assert float((gt.cpu() - want["tables"]).abs().max()) <= 1e-5 * float(
+        want["tables"].abs().max())
+    before = card["tables"].clone()
+    opt = fm.SPEC.optim
+    make_recsys_train_step(cfg, opt)(card, init_state(opt, card), batch)
+    decayed = before - opt.lr * opt.weight_decay * before
+    rows = batch["sparse"].long()[0]
+    moved = (card["tables"][torch.arange(cfg.n_sparse, device=cuda_dev), rows]
+             - decayed[torch.arange(cfg.n_sparse, device=cuda_dev), rows]).abs()
+    assert bool((moved.amax(-1) > 1e-4).all())
+
+
+@pytest.mark.parametrize("prec", ["FP32", "MIXED"])
+@pytest.mark.parametrize("arch", ["fm", *sorted(RECSYS_CUT)])
+def test_recsys_train_step_on_card_matches_cpu(cuda_dev, arch, prec):
+    """One train step at full width with a cut vocabulary, the card against
+    the CPU from the same parameters and batch: the loss, the gradient
+    norm and every gradient within RECSYS_TOL·max|cpu| (under MIXED, a leaf
+    past it passes where the CPU's own bf16 gradient lies further than
+    that from its f32 gradient and the card's at most twice as far: two
+    bf16 roundings of one f32 gradient); then
+    ``apply_updates`` on the CPU's gradients on both devices, params and
+    AdamW state within 1e-6·max|cpu| (the same f32 ops in the same order;
+    ``pow`` and the norm's reduction round otherwise)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import tree
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import common
+    from repro_torch.train.optim import _global_norm, apply_updates, init_state
+    from repro_torch.train.step import loss_and_grads
+
+    spec = get_arch(arch)
+    cut = RECSYS_CUT.get(arch, {"vocab_per_field": 1000})
+    cfg = dataclasses.replace(spec.make_config(), precision=getattr(common, prec), **cut)
+    tol = RECSYS_TOL[prec]
+    cpu = recsys.init_params(cfg, seed=2, device="cpu")
+    card = tree.tree_map(lambda t: t.to(cuda_dev), cpu)
+    batch = make_batch_fn(spec, cfg, 32 if arch == "bert4rec" else 256, 64, "cpu")(3)
+    fn = functools.partial(recsys.loss_fn, cfg)
+    want_l, want_g = loss_and_grads(fn, cpu, batch)
+    got_l, got_g = loss_and_grads(fn, card, {k: v.to(cuda_dev) for k, v in batch.items()})
+
+    def close(got, want, t):
+        scale = float(want.float().abs().max()) or 1.0
+        assert float((got.float().cpu() - want.float()).abs().max()) <= t * scale
+
+    close(got_l, want_l, tol)
+    close(_global_norm(got_g), _global_norm(want_g), tol)
+    want32 = tree.leaves(loss_and_grads(functools.partial(
+        recsys.loss_fn, dataclasses.replace(cfg, precision=common.FP32)), cpu, batch)[1])
+    for g, w, w32 in zip(tree.leaves(got_g), tree.leaves(want_g), want32):
+        assert g.device.type == "cuda" and g.dtype == w.dtype and g.shape == w.shape
+        g = g.cpu()
+        scale = float(w.abs().max()) or 1.0
+        if float((g - w).abs().max()) > tol * scale:  # bf16 rounding, not a fault:
+            ref_off = float((w - w32).abs().max())  # the CPU's bf16 gradient is as far off
+            assert prec == "MIXED" and ref_off > tol * scale
+            assert float((g - w32).abs().max()) <= 2.0 * ref_off
+    same = tree.tree_map(lambda t: t.to(cuda_dev), want_g)
+    _, cpu_state, mc = apply_updates(spec.optim, cpu, want_g, init_state(spec.optim, cpu))
+    _, card_state, mg = apply_updates(spec.optim, card, same, init_state(spec.optim, card))
+    close(mg["grad_norm"], mc["grad_norm"], 1e-6)
+    for g, w in zip(tree.leaves((card, card_state)), tree.leaves((cpu, cpu_state))):
+        close(g, w, 1e-6)
 
 
 @pytest.mark.parametrize("backend", ["graph", "brute"])
