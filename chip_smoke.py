@@ -161,12 +161,25 @@ Phases:
      1e-6); the loop at fm's widths and V = 1,000 (12 steps, a checkpoint
      every 4, a crash at 7 and a resume from 4 within rtol 1e-4, the last
      checkpoint restored bit for bit); examples/train_retrieval.py on the
-     card. Last of all, one more Engine.build of phase 4's data under the
-     profiler
+     card. Then the LM step (no kernel of the port lies on it): the five
+     reduced LM configs on the card against the CPU under FP32 and MIXED
+     (forward at B=2, S=96, forward_last, loss_fn, 40 decode tokens against
+     a cache of 36 rows; MoE tokens near a router tie under MIXED counted
+     and left out); decode token by token against forward over a 64-token
+     prompt (yi-34b and mistral-large-123b reduced, phi3 full width);
+     phi3-mini-3.8b at full width and depth and mixtral-8x7b at full width
+     on 8 of its 32 layers, bf16 parameters drawn on the card: prefill_32k
+     (phi3 at B=1; mixtral at the largest B that leaves a quarter of the
+     card free), decode_32k and long_500k (mixtral) with caches filled from
+     a generator, each timed (ms, tokens/s, model TFLOP/s, peak memory,
+     decode against its bytes bound), profiled once (busy share, top ops,
+     MoE drops), the attention's part of prefill from one q-chunk's time;
+     device memory back to its level after. Last of all, one more
+     Engine.build of phase 4's data under the profiler
   6. a JSON line of every kernel's launches in phases 4 and 5 (the exact,
      serve, quantized, partitioned, tiered, sharded, mutable, recsys,
-     recsys-model and training paths, each counted from 0; a kernel of a
-     path that the path never launched fails the run), error and times
+     recsys-model, training and LM paths, each counted from 0; a kernel of
+     a path that the path never launched fails the run), error and times
 
 At N = 1M this dataset's graph recall is low (the AUTO-built HELP graph
 splits by attribute combination; the reference does the same): it is
@@ -284,6 +297,23 @@ TRAIN_SMALL_BATCH, TRAIN_SMALL_BERT4REC, OPT_TOL = 256, 32, 1e-6
 #: (check_close; tests/test_torch_train.py holds the reference's
 #: gradients to the port's the same way)
 BF16_GRAD_SLACK = 2.0
+#: phase 5's LM step. The card against the CPU at each of the five reduced
+#: configs: forward at (B, S) = (2, 96) (not a chunk multiple), then
+#: LM_DECODE_STEPS tokens against a cache of LM_CACHE_ROWS rows (past its
+#: end for the full-attention archs; mixtral-smoke's rolling cache of 32
+#: wraps). Under MIXED, a MoE token within LM_EPS of a router tie (or whose
+#: rank such a tie could move across the capacity: unsettled_tokens) may
+#: route otherwise on the card; it is counted, and at most half may be.
+LM_IDS = ("phi3-mini-3.8b", "yi-34b", "mistral-large-123b", "mixtral-8x7b", "kimi-k2-1t-a32b")
+LM_SMALL_B, LM_SMALL_S, LM_DECODE_STEPS, LM_CACHE_ROWS, LM_EPS = 2, 96, 40, 36, 0.01
+#: decode against prefill (the dense archs): a prompt decoded token by token
+#: from an empty cache, each position's logits against forward's there
+LM_PROMPT = 64
+#: the full-width cells may fill this share of the card (a quarter free);
+#: mixtral-8x7b runs on 8 of its 32 layers (1.45 B parameters a layer,
+#: 23.7 GB with the embeddings in bf16); decode ms a token is the median of
+#: LM_DECODE_REPS steps after a warm-up
+LM_MEM_SHARE, MIXTRAL_LAYERS, LM_DECODE_REPS = 0.75, 8, 20
 #: fm_interaction's gradient, card against CPU, at B x F x D besides the
 #: training shape
 FM_GRAD_SHAPES = tuple((b, f, d) for b in (1, 255, 257) for f in (1, 39) for d in (1, 10, 64))
@@ -3595,6 +3625,330 @@ def run_train_retrieval(dev) -> dict:
             "backend": res["backend"], "matched": res["matched"]}
 
 
+def lm_unsettled(cfg, stats: dict, prec: str, shape) -> torch.Tensor:
+    """The tokens the card may route otherwise than the CPU did
+    (``unsettled_tokens`` of the CPU run's router logits): MoE under MIXED
+    only; none elsewhere."""
+    from repro_torch.models.transformer import unsettled_tokens
+
+    if prec != "MIXED" or not stats.get("router_logits"):
+        return torch.zeros(shape, dtype=torch.bool)
+    return unsettled_tokens(cfg, stats["router_logits"], LM_EPS).view(shape)
+
+
+def check_held(got, want, tol: float, label: str, unsure=None) -> float:
+    """Card against CPU over the settled rows (``unsure`` false): max|Δ| ≤
+    tol·max|cpu|, the scale over every row. Returns max|Δ| / max|cpu|."""
+    g, w = got.float().cpu(), want.float()
+    scale = float(w.abs().max()) or 1.0
+    err = (g - w).abs()
+    if unsure is not None:
+        err = err[~unsure]
+    rel = float(err.max()) / scale if err.numel() else 0.0
+    if rel > tol:
+        raise SystemExit(f"{label}: the card differs from the CPU by {rel:.3e} of max|cpu| "
+                         f"(tolerance {tol})")
+    return rel
+
+
+def check_lm_small(dev, seed: int) -> dict:
+    """Phase 5, LM: each reduced config on the card against the CPU with
+    the same parameters (drawn on the CPU from ``seed``), under FP32 and
+    MIXED within MODEL_TOL: forward logits at (LM_SMALL_B, LM_SMALL_S),
+    forward_last, loss_fn, and LM_DECODE_STEPS decode tokens from an empty
+    cache of LM_CACHE_ROWS rows; MoE tokens near a router tie under MIXED
+    are counted and left out (``lm_unsettled``)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import common
+    from repro_torch.models import transformer as tfm
+
+    out = {}
+    b, s = LM_SMALL_B, LM_SMALL_S
+    for arch in LM_IDS:
+        for prec in ("FP32", "MIXED"):
+            cfg = dataclasses.replace(get_arch(arch).make_reduced(),
+                                      precision=getattr(common, prec))
+            tol, label = MODEL_TOL[prec], f"{arch} reduced {prec}"
+            cpu_params = tfm.init_params(cfg, seed=seed, device="cpu")
+            card_params = tree_to(cpu_params, dev)
+            rng = np.random.default_rng(seed + 11)
+            tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s), dtype=np.int32))
+            labels = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s), dtype=np.int32))
+            dec = torch.from_numpy(rng.integers(0, cfg.vocab, (LM_DECODE_STEPS, b, 1),
+                                                dtype=np.int32))
+            stats = {}
+            want = tfm.forward(cfg, cpu_params, tokens, stats)
+            unsure = lm_unsettled(cfg, stats, prec, (b, s))
+            r = {"forward": check_held(tfm.forward(cfg, card_params, tokens.to(dev)), want, tol,
+                                       f"{label} forward", unsure)}
+            r["forward_last"] = check_held(
+                tfm.forward_last(cfg, card_params, tokens.to(dev)),
+                tfm.forward_last(cfg, cpu_params, tokens), tol, f"{label} forward_last",
+                unsure[:, -1])
+            batch = {"tokens": tokens, "labels": labels}
+            r["loss"] = check_held(
+                tfm.loss_fn(cfg, card_params, {k: v.to(dev) for k, v in batch.items()})[None],
+                tfm.loss_fn(cfg, cpu_params, batch)[None], tol, f"{label} loss")
+            caches = [tfm.init_cache(cfg, b, LM_CACHE_ROWS, device=d) for d in ("cpu", dev)]
+            r["decode"], n_unsure = 0.0, int(unsure.sum())
+            for i in range(LM_DECODE_STEPS):
+                st = {}
+                _, w = tfm.decode_step(cfg, cpu_params, caches[0], dec[i], st)
+                _, g = tfm.decode_step(cfg, card_params, caches[1], dec[i].to(dev))
+                u = lm_unsettled(cfg, st, prec, (b,))
+                n_unsure += int(u.sum())
+                r["decode"] = max(r["decode"], check_held(g, w, tol, f"{label} decode {i}", u))
+            if int(caches[1]["len"]) != LM_DECODE_STEPS:
+                raise SystemExit(f"{label}: the card's cache length {int(caches[1]['len'])}")
+            if n_unsure > (b * s + b * LM_DECODE_STEPS) // 2:
+                raise SystemExit(f"{label}: {n_unsure} tokens unsettled, more than half")
+            r["unsettled_tokens"] = n_unsure
+            log(f"  {label}: " + ", ".join(
+                f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}" for k, v in r.items()))
+            out[f"{arch} {prec}"] = r
+    return out
+
+
+def check_decode_prefill(dev, cfg, params, seed: int, label: str) -> float:
+    """A LM_PROMPT-token prompt decoded token by token from an empty cache
+    on the card: each position's logits against ``forward``'s at that
+    position, within MODEL_TOL["MIXED"] of max|forward| there. Returns the
+    worst ratio."""
+    from repro_torch.models import transformer as tfm
+
+    rng = np.random.default_rng(seed + 13)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, LM_PROMPT), dtype=np.int32)).to(dev)
+    with torch.inference_mode():
+        want = tfm.forward(cfg, params, prompt)[0]
+    cache = tfm.init_cache(cfg, 1, LM_PROMPT, device=dev)
+    worst = 0.0
+    for pos in range(LM_PROMPT):
+        _, got = tfm.decode_step(cfg, params, cache, prompt[:, pos:pos + 1])
+        worst = max(worst, check_held(got[0], want[pos].cpu(), MODEL_TOL["MIXED"],
+                                      f"{label} decode against prefill at {pos}"))
+    log(f"  {label}: decode against prefill over {LM_PROMPT} positions, worst "
+        f"{worst:.3e} of max|forward|")
+    return worst
+
+
+def lm_cell(dev, cfg, params, cell, b: int, step, inputs, label: str, timed: int = 1) -> dict:
+    """One LM cell at batch ``b``: ``timed`` calls of ``step(*inputs())``
+    on the host clock to a synchronised result (median), the peak device
+    memory over what was allocated before (the parameters, and a decode
+    cell's cache), tokens/s and model TFLOP/s
+    (``model_flops``: 2·active parameters a token, attention left out)."""
+    from repro_torch.models.transformer import model_flops
+
+    cell = dataclasses.replace(cell, global_batch=b)
+    times = []
+    for _ in range(timed):
+        args = inputs()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        del args, out
+    ms = statistics.median(times)
+    tokens = b * (cell.seq_len if cell.kind == "prefill" else 1)
+    flops = model_flops(cfg, cell)
+    r = {"batch": b, "ms": ms, "tokens_per_s": tokens / ms * 1e3,
+         "model_tflops": flops / ms / 1e9, "peak_gb_over_before":
+             (torch.cuda.max_memory_allocated() - base) / 1e9}
+    log(f"  {label} B={b}: {ms:.3f} ms ({'median of %d' % timed if timed > 1 else 'one call'}), "
+        f"{r['tokens_per_s']:.1f} tokens/s, {r['model_tflops']:.3f} model TFLOP/s "
+        f"({100 * r['model_tflops'] * 1e12 / PEAK_BF16_FLOPS:.2f}% of the bf16 peak), peak "
+        f"{r['peak_gb_over_before']:.3f} GB over what was allocated before")
+    return r
+
+
+def lm_weight_bytes(cfg, params, tokens: int) -> int:
+    """Bytes of the parameters a step over ``tokens`` tokens must read: all
+    but the embedding table (its rows only) and, for MoE, the experts no
+    assignment can reach (at most tokens·k of E a layer)."""
+    from repro_torch.models.common import tree_bytes
+
+    total = tree_bytes(params) - params["embed"].numel() * params["embed"].element_size()
+    total += tokens * cfg.d_model * params["embed"].element_size()
+    if cfg.moe:
+        experts = sum(params["layers"]["ffn"][w].numel() for w in ("w1", "w2", "w3"))
+        unused = 1 - min(cfg.moe.n_experts, tokens * cfg.moe.top_k) / cfg.moe.n_experts
+        total -= int(unused * experts * params["layers"]["ffn"]["w1"].element_size())
+    return total
+
+
+def lm_model_step(dev, arch: str, seed: int, n_layers=None) -> dict:
+    """Phase 5, one LM arch at full width with bf16 parameters (the
+    reference's serving precision, launch/build.py:80-86), on ``n_layers``
+    of its layers if given: parameters drawn on the card (the count held to
+    the config's); decode against prefill (dense archs); then each cell of
+    its shape table that is not skipped:
+
+    - prefill_32k: one sequence first (the peak it adds over the
+      parameters sets the batch), then at the largest B that leaves a
+      quarter of the card free, or B = 1 where one sequence's full (S, S)
+      attention already takes seconds; one profiled call with the MoE
+      drop count; the time of one ``_attend`` q-chunk at that shape, times
+      the chunks and layers, as the attention's part;
+    - decode_32k and long_500k: the cache filled from a generator with
+      ``len`` = S − 1, at the reference's B or the largest that leaves a
+      quarter free; the median ms a token of LM_DECODE_REPS steps beside
+      the bytes bound (the weights a step reads and the cache, over 3.35
+      TB/s); one profiled step with the drop count.
+
+    Every logit finite. The parameters and caches are freed at the end."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import Precision, count_params, tree_bytes
+    from repro_torch.train.step import make_lm_decode_step, make_lm_prefill_step
+
+    spec = get_arch(arch)
+    cfg = spec.make_config(precision=Precision(param_dtype=torch.bfloat16))
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    budget = LM_MEM_SHARE * torch.cuda.get_device_properties(dev).total_memory
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    pbytes = tree_bytes(params)
+    out = {"layers": cfg.n_layers, "params": cfg.param_count, "param_gb": pbytes / 1e9,
+           "init_s": time.perf_counter() - t0}
+    log(f"  {arch} ({cfg.n_layers} layers, bf16): {cfg.param_count} parameters "
+        f"({out['param_gb']:.3f} GB) drawn on the card in {out['init_s']:.2f} s")
+    if count_params(params) != cfg.param_count:
+        raise SystemExit(f"{arch}: {count_params(params)} parameters, the config says "
+                         f"{cfg.param_count}")
+    if not cfg.moe:
+        out["decode_vs_prefill"] = check_decode_prefill(dev, cfg, params, seed,
+                                                        f"{arch} full width")
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+
+    def tokens(b, s):
+        return torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev, dtype=torch.int32)
+
+    def finite(logits, label):
+        if not bool(torch.isfinite(logits).all()):
+            raise SystemExit(f"{label}: logits not finite")
+
+    # ---- prefill
+    cell = spec.cell("prefill_32k")
+    s, label = cell.seq_len, f"{arch} prefill_32k"
+    prefill = make_lm_prefill_step(cfg)
+    prefill(params, {"tokens": tokens(1, 2048)})  # warm-up at a short prompt
+    one = lm_cell(dev, cfg, params, cell, 1, prefill,
+                  lambda: (params, {"tokens": tokens(1, s)}), label)
+    b = 1
+    if cfg.sliding_window:  # banded: a sequence is cheap, fill the card
+        free = budget - torch.cuda.memory_allocated()
+        b = min(cell.global_batch, max(1, int(free // (one["peak_gb_over_before"] * 1e9))))
+    r = one if b == 1 else dict(lm_cell(dev, cfg, params, cell, b, prefill,
+                                        lambda: (params, {"tokens": tokens(b, s)}), label),
+                                one_sequence=one)
+    stats, batch = {}, {"tokens": tokens(b, s)}
+    logits = []
+    r["profile"] = profile_call(f"{label} B={b}",
+                                lambda: logits.append(tfm.forward_last(cfg, params,
+                                                                       batch["tokens"], stats)),
+                                warmup=False)
+    finite(logits[-1], label)
+    if cfg.moe:
+        r["dropped"], r["assignments"] = int(stats["dropped"]), stats["assignments"]
+        log(f"  {label}: {r['dropped']} of {r['assignments']} assignments dropped by the "
+            f"capacity ({100 * r['dropped'] / r['assignments']:.3f}%)")
+    del stats, batch, logits
+    # the attention's part: one q-chunk's _attend at this shape
+    kv, g, dh, qc = cfg.n_kv_heads, cfg.q_per_kv, cfg.d_head, min(cfg.q_chunk, s)
+    band = min(cfg.sliding_window + qc, s) if cfg.sliding_window else s
+    q = torch.randn((b, qc, kv, g, dh), generator=gen, device=dev, dtype=torch.bfloat16)
+    k = torch.randn((b, kv, band, dh), generator=gen, device=dev, dtype=torch.bfloat16)
+    mask = torch.ones((qc, band), dtype=torch.bool, device=dev)
+    chunk_ms = cuda_ms(lambda: tfm._attend(q, k, k, mask), reps=5)
+    n_chunks = (s + qc - 1) // qc
+    r["attend_chunk_ms"] = chunk_ms
+    r["attention_share"] = chunk_ms * n_chunks * cfg.n_layers / r["ms"]
+    # the f32 score block: ≈ 45 B an element (bf16 product, f32 copy, /√dh,
+    # mask, softmax's passes, bf16 probabilities)
+    r["score_block_gb"] = b * kv * g * qc * band * 4 / 1e9
+    log(f"  {label}: one q-chunk's _attend (B={b}, {qc} queries x {band} keys, "
+        f"{r['score_block_gb']:.3f} GB f32 score block) {chunk_ms:.3f} ms; x {n_chunks} chunks "
+        f"x {cfg.n_layers} layers = {100 * r['attention_share']:.1f}% of the prefill")
+    del q, k, mask
+    out["prefill_32k"] = r
+
+    # ---- decode
+    decode = make_lm_decode_step(cfg)
+    for cell in spec.shapes:
+        if cell.kind != "decode" or cell.skipped:
+            continue
+        label = f"{arch} {cell.name}"
+        rows = tfm.abstract_cache(cfg, 1, cell.seq_len)["k"].shape[2]
+        per_seq = 2 * cfg.n_layers * rows * cfg.n_kv_heads * cfg.d_head * 2
+        free = budget - torch.cuda.memory_allocated()
+        b = min(cell.global_batch, max(1, int(free // per_seq)))
+        cache = tfm.init_cache(cfg, b, cell.seq_len, device=dev)
+        cache["k"].normal_(generator=gen)
+        cache["v"].normal_(generator=gen)
+        cache["len"].fill_(cell.seq_len - 1)
+        cache_bytes = cache["k"].numel() * 4
+        tok = {"tokens": tokens(b, 1)}
+        decode(params, cache, tok)  # warm-up
+        r = lm_cell(dev, cfg, params, cell, b, decode, lambda: (params, cache, tok), label,
+                    timed=LM_DECODE_REPS)
+        r["cache_rows"], r["cache_gb"] = rows, cache_bytes / 1e9
+        r["weights_read_gb"] = lm_weight_bytes(cfg, params, b) / 1e9
+        r["bound_ms"] = (r["weights_read_gb"] + r["cache_gb"]) * 1e9 / PEAK_BYTES_PER_S * 1e3
+        stats, logits = {}, []
+        r["profile"] = profile_call(f"{label} B={b}", lambda: logits.append(
+            tfm.decode_step(cfg, params, cache, tok["tokens"], stats)[1]), warmup=False)
+        finite(logits[-1], label)
+        if cfg.moe:
+            r["dropped"], r["assignments"] = int(stats["dropped"]), stats["assignments"]
+        log(f"  {label} B={b}: cache {rows} rows ({r['cache_gb']:.3f} GB), {r['ms']:.3f} ms a "
+            f"token against a {r['bound_ms']:.3f} ms bound (weights read "
+            f"{r['weights_read_gb']:.3f} GB + cache over 3.35 TB/s; "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}%)"
+            + (f"; {r['dropped']} of {r['assignments']} assignments dropped" if cfg.moe else ""))
+        out[cell.name] = r
+        del cache, stats, logits
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_lm_path(dev, seed: int) -> dict:
+    """Phase 5's LM step: ``check_lm_small``; decode against prefill at
+    yi-34b's and mistral-large-123b's reduced widths; then phi3-mini-3.8b
+    at full width and depth and mixtral-8x7b at full width on
+    MIXTRAL_LAYERS layers (``lm_model_step``), each freed before the next.
+    Device memory must come back to its level before the step."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as tfm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    out = {"small": check_lm_small(dev, seed), "decode_vs_prefill_reduced": {}}
+    for arch in ("yi-34b", "mistral-large-123b"):
+        cfg = get_arch(arch).make_reduced()
+        params = tfm.init_params(cfg, seed=seed, device=dev)
+        out["decode_vs_prefill_reduced"][arch] = check_decode_prefill(
+            dev, cfg, params, seed, f"{arch} reduced")
+        del params
+    out["phi3-mini-3.8b"] = lm_model_step(dev, "phi3-mini-3.8b", seed)
+    out["mixtral-8x7b"] = lm_model_step(dev, "mixtral-8x7b", seed, MIXTRAL_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    out["memory_before_after"] = (before, after)
+    log(f"  LM step: device memory {before} B before, {after} B after")
+    if after > before + (64 << 20):
+        raise SystemExit(f"LM step: {after - before} B still allocated after the models were freed")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="corpus size (>= 200000 for a record)")
@@ -3800,11 +4154,19 @@ def main(argv=None) -> int:
         if row:
             m64[arch] = row
         train_out[arch] = models_out[arch].pop("train")
+    # the LM family's serving path: no kernel of the port lies on it (the
+    # reference computes its layers in plain jnp)
+    log("[5] LM: the five reduced configs card against CPU, then phi3-mini-3.8b and "
+        f"mixtral-8x7b ({MIXTRAL_LAYERS} layers) at full width")
+    t0 = time.perf_counter()
+    lm_out, lm_launches = drive(run_lm_path, (), dev, args.seed)
+    lm_out["step_s"] = time.perf_counter() - t0
+    log(f"  LM step: {lm_out['step_s']:.2f} s")
     train_launches = {k: fm_train_launches[k] + launch_train_launches[k]
                       + retrieval_train_launches[k] for k in wrappers}
     launches = {k: exact_launches[k] + serve_launches[k] + quant_launches[k] + part_launches[k]
                 + tier_launches[k] + shard_launches[k] + mut_launches[k] + recsys_launches[k]
-                + models_launches[k] + train_launches[k] for k in wrappers}
+                + models_launches[k] + train_launches[k] + lm_launches[k] for k in wrappers}
     # one more build, profiled (no warm-up: the kernels ran in the first).
     # Last of all: after its many thousand launches the profiler drops the
     # events of later profiles.
@@ -3859,6 +4221,7 @@ def main(argv=None) -> int:
                                      "mutable": mut_out,
                                      "recsys": recsys_out, "recsys_cut_vocab": recsys_small,
                                      "recsys_models": models_out, "train": train_out,
+                                     "lm": lm_out,
                                      "profiles": profiles, "small_input": small,
                                      "launches": {"exact": exact_launches,
                                                   "serve": serve_launches,
@@ -3871,7 +4234,8 @@ def main(argv=None) -> int:
                                                   "recsys_models": models_launches,
                                                   "fm_train": fm_train_launches,
                                                   "fm_launch_train": launch_train_launches,
-                                                  "train_retrieval": retrieval_train_launches},
+                                                  "train_retrieval": retrieval_train_launches,
+                                                  "lm": lm_launches},
                                      "gather_descent_block": kern["gather_auto"]["descent_block"],
                                      "gather_narrow_block": kern["gather_auto"]["narrow_block"],
                                      "fm_serve_p99": kern["fm_interaction"]["serve_p99"],

@@ -1,2 +1,2 @@
-"""Architecture configs. The four recsys configs are ported; the registry
-names the ROADMAP item of every LM and GNN id of the reference."""
+"""Architecture configs. The five LM configs and the four recsys configs are
+ported; the registry names the ROADMAP item of the reference's GNN id."""

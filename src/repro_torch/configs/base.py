@@ -1,10 +1,10 @@
-"""Config substrate: ``ShapeCell`` and ``ArchSpec``, and the recsys shape
-table. The LM and GNN shape tables come with their families (ROADMAP.md
-queue 1, item 16)."""
+"""Config substrate: ``ShapeCell`` and ``ArchSpec``, the LM shape table
+(``LM_SHAPES``, ``lm_shapes``) and the recsys shape table. The GNN shape
+table comes with its family (ROADMAP.md queue 1, item 16)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 from repro_torch.train.optim import OptimConfig
 
@@ -49,6 +49,31 @@ class ArchSpec:
             if c.name == name:
                 return c
         raise KeyError(f"{self.arch_id}: unknown shape {name!r}")
+
+
+LM_SHAPES = (
+    ShapeCell(name="train_4k", kind="train", seq_len=4096, global_batch=256),
+    ShapeCell(name="prefill_32k", kind="prefill", seq_len=32768, global_batch=32),
+    ShapeCell(name="decode_32k", kind="decode", seq_len=32768, global_batch=128),
+    ShapeCell(name="long_500k", kind="decode", seq_len=524288, global_batch=1),
+)
+
+
+def lm_shapes(sliding_window: Optional[int]) -> tuple[ShapeCell, ...]:
+    """long_500k requires sub-quadratic attention: it runs only for the
+    SWA archs (rolling O(window) cache); pure full-attention archs skip it."""
+    cells = []
+    for c in LM_SHAPES:
+        if c.name == "long_500k" and sliding_window is None:
+            c = dataclasses.replace(
+                c,
+                skip_reason=(
+                    "pure full-attention arch: 512k-token KV cache/attention "
+                    "has no sub-quadratic mechanism in this config"
+                ),
+            )
+        cells.append(c)
+    return tuple(cells)
 
 
 RECSYS_SHAPES = (

@@ -1,23 +1,40 @@
 """Architecture registry: ``get_arch(<id>)`` resolution.
 
-The four recsys ids are ported. Every LM and GNN id of the reference raises
-``KeyError`` naming the ROADMAP.md item that ports it.
+The five LM ids and the four recsys ids are ported. The reference's GNN id
+raises ``KeyError`` naming the ROADMAP.md item that ports it.
 """
 from __future__ import annotations
 
-from repro_torch.configs import bert4rec, dlrm_rm2, fm, xdeepfm
+from repro_torch.configs import (
+    bert4rec,
+    dlrm_rm2,
+    fm,
+    kimi_k2_1t_a32b,
+    mistral_large_123b,
+    mixtral_8x7b,
+    phi3_mini_3_8b,
+    xdeepfm,
+    yi_34b,
+)
 from repro_torch.configs.base import ArchSpec
 
 ARCHS: dict[str, ArchSpec] = {
-    spec.arch_id: spec for spec in (dlrm_rm2.SPEC, xdeepfm.SPEC, bert4rec.SPEC, fm.SPEC)
+    spec.arch_id: spec
+    for spec in (
+        mistral_large_123b.SPEC,
+        yi_34b.SPEC,
+        phi3_mini_3_8b.SPEC,
+        kimi_k2_1t_a32b.SPEC,
+        mixtral_8x7b.SPEC,
+        dlrm_rm2.SPEC,
+        xdeepfm.SPEC,
+        bert4rec.SPEC,
+        fm.SPEC,
+    )
 }
 
-_MODELS = "ROADMAP.md queue 1, item 16 (the LM and GNN models)"
 #: the reference's other architecture ids, with the item that ports each
-NOT_PORTED: dict[str, str] = {
-    "mistral-large-123b": _MODELS, "yi-34b": _MODELS, "phi3-mini-3.8b": _MODELS,
-    "kimi-k2-1t-a32b": _MODELS, "mixtral-8x7b": _MODELS, "graphcast": _MODELS,
-}
+NOT_PORTED: dict[str, str] = {"graphcast": "ROADMAP.md queue 1, item 16 (the GNN model)"}
 
 
 def get_arch(arch_id: str) -> ArchSpec:

@@ -12,8 +12,9 @@ two are mutually exclusive. The build runs on the CUDA card unless
 
 The reference's module of the same name also holds the cell builder of its
 LM, GNN and recsys cells (``build_cell``), JAX sharding and dry-run
-machinery; that part waits for the LM and GNN models (ROADMAP.md queue 1,
-item 16). The recsys cells' FLOP count is ``models.recsys.model_flops``.
+machinery; that part waits for the sharded and dry-run side (ROADMAP.md
+queue 1, item 16). The cells' FLOP counts are ``models.recsys.model_flops``
+and ``models.transformer.model_flops``.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.build --device cpu --n 2048 \\

@@ -3,9 +3,10 @@
 Runs the fault-tolerant loop (checkpoint/resume, straggler watchdog) for a
 registered recsys architecture (fm, dlrm-rm2, xdeepfm, bert4rec) on the
 CUDA card, or on the CPU with ``--device cpu``. ``--full-config`` takes the
-full-size config; by default the smoke-scale one runs. The LM and GNN ids
-raise the registry's ``KeyError``, which names the ROADMAP.md item that
-ports them.
+full-size config; by default the smoke-scale one runs. The LM ids resolve
+in the registry (their serving is ported) but raise ``KeyError`` here,
+naming ROADMAP.md queue 1, item 16 (LM training); the GNN id raises the
+registry's ``KeyError``.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch fm --steps 50 --device cpu
@@ -20,6 +21,17 @@ import torch
 from repro_torch.core import resolve_device, to_tensor
 
 
+#: the ROADMAP.md item that ports each family's training
+_NOT_PORTED = {"lm": "ROADMAP.md queue 1, item 16 (LM training)",
+               "gnn": "ROADMAP.md queue 1, item 16 (the GNN model)"}
+
+
+def _require_recsys(spec) -> None:
+    if spec.family != "recsys":
+        raise KeyError(f"{spec.arch_id}: {spec.family} training is not ported yet: "
+                       f"{_NOT_PORTED[spec.family]}")
+
+
 def make_batch_fn(spec, cfg, batch_size: int, seq_len: int, device=None):
     """``batch_for_step(step)``: the reference's numpy stream for ``step``
     (``default_rng(10_000 + step)``, the same draws in the same order), as
@@ -27,8 +39,7 @@ def make_batch_fn(spec, cfg, batch_size: int, seq_len: int, device=None):
     positions a sequence and 64 shared negatives; the others: ids, labels
     in {0, 1} and, for dlrm, N(0, 1) dense features. ``seq_len`` is the
     LM families' and not read here."""
-    if spec.family != "recsys":
-        raise KeyError(f"family {spec.family!r} is not ported")
+    _require_recsys(spec)
     dev = resolve_device(device)
 
     def batch_for_step(step: int) -> dict:
@@ -74,6 +85,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     spec = get_arch(args.arch)
+    _require_recsys(spec)
     dev = resolve_device(args.device)
     cfg = spec.make_config() if args.full_config else spec.make_reduced()
     params = recsys_mod.init_params(cfg, seed=0, device=dev)

@@ -13,8 +13,11 @@ import dataclasses
 import math
 from typing import Callable, Iterator, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core import to_tensor
 
 Tensor = torch.Tensor
 
@@ -106,6 +109,41 @@ def count_params(tree) -> int:
     """Number of parameters in a nested dict of tensors (meta tensors count
     without memory)."""
     return int(sum(math.prod(t.shape) for t in leaves(tree)))
+
+
+def map_shapes(shapes: dict, fn: Callable, path: str = "") -> dict:
+    """``fn(path, shape)`` at every leaf of a nested dict of shapes."""
+    return {k: map_shapes(s, fn, f"{path}{k}/") if isinstance(s, dict) else fn(f"{path}{k}", s)
+            for k, s in shapes.items()}
+
+
+def meta_tree(shapes: dict, dtype: torch.dtype) -> dict:
+    """Tensors of ``shapes`` on ``torch.device("meta")``: shapes and dtypes,
+    no memory (the counterpart of ``jax.eval_shape``)."""
+    return map_shapes(shapes, lambda _, s: torch.empty(s, dtype=dtype, device="meta"))
+
+
+def tree_from_numpy(shapes: dict, tree: dict, dtype: torch.dtype, device, what: str) -> dict:
+    """The reference's nested dict ``tree`` (numpy or array-likes) as
+    tensors of ``dtype`` on ``device``; every key and shape is checked
+    against ``shapes`` (``what`` names the model in the error)."""
+    def convert(shapes: dict, sub: dict, path: str) -> dict:
+        if not isinstance(sub, dict) or set(sub) != set(shapes):
+            got = sorted(sub) if isinstance(sub, dict) else type(sub).__name__
+            raise ValueError(f"parameters {path or '/'}: {got} != {sorted(shapes)} for {what}")
+        out = {}
+        for k, shape in shapes.items():
+            if isinstance(shape, dict):
+                out[k] = convert(shape, sub[k], f"{path}{k}/")
+                continue
+            got = tuple(getattr(sub[k], "shape", np.shape(sub[k])))
+            if got != shape:
+                raise ValueError(f"{path}{k}: shape {got} != {shape}")
+            # reshape: to_tensor gives a 0-d numpy array one axis
+            out[k] = to_tensor(sub[k], dtype, device).reshape(shape)
+        return out
+
+    return convert(shapes, tree, "")
 
 
 def tree_bytes(tree) -> int:

@@ -25,7 +25,6 @@ from __future__ import annotations
 import dataclasses
 import math
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -116,17 +115,10 @@ def param_shapes(cfg: RecsysConfig) -> dict:
     return p
 
 
-def _map_shapes(shapes: dict, fn, path: str = "") -> dict:
-    return {k: _map_shapes(s, fn, f"{path}{k}/") if isinstance(s, dict) else fn(f"{path}{k}", s)
-            for k, s in shapes.items()}
-
-
 def abstract_params(cfg: RecsysConfig) -> dict:
     """The parameters on ``torch.device("meta")``: shapes and dtypes, no
     memory (the counterpart of ``jax.eval_shape``)."""
-    pd = cfg.precision.param_dtype
-    return _map_shapes(param_shapes(cfg),
-                       lambda _, s: torch.empty(s, dtype=pd, device="meta"))
+    return common.meta_tree(param_shapes(cfg), cfg.precision.param_dtype)
 
 
 def init_params(cfg: RecsysConfig, seed: int = 0, device=None) -> dict:
@@ -185,26 +177,8 @@ def init_params(cfg: RecsysConfig, seed: int = 0, device=None) -> dict:
 def params_from_numpy(cfg: RecsysConfig, tree: dict, device=None) -> dict:
     """The reference's nested parameter dict (numpy or array-likes) as the
     port's tensors on ``device``; every key and shape is checked."""
-    dev = resolve_device(device)
-
-    def convert(shapes: dict, sub: dict, path: str) -> dict:
-        if not isinstance(sub, dict) or set(sub) != set(shapes):
-            got = sorted(sub) if isinstance(sub, dict) else type(sub).__name__
-            raise ValueError(f"parameters {path or '/'}: {got} != {sorted(shapes)} "
-                             f"for kind {cfg.kind!r}")
-        out = {}
-        for k, shape in shapes.items():
-            if isinstance(shape, dict):
-                out[k] = convert(shape, sub[k], f"{path}{k}/")
-                continue
-            got = tuple(getattr(sub[k], "shape", np.shape(sub[k])))
-            if got != shape:
-                raise ValueError(f"{path}{k}: shape {got} != {shape}")
-            # reshape: to_tensor gives a 0-d numpy array one axis
-            out[k] = to_tensor(sub[k], cfg.precision.param_dtype, dev).reshape(shape)
-        return out
-
-    return convert(param_shapes(cfg), tree, "")
+    return common.tree_from_numpy(param_shapes(cfg), tree, cfg.precision.param_dtype,
+                                  resolve_device(device), f"kind {cfg.kind!r}")
 
 
 def model_flops(cfg: RecsysConfig, cell) -> float:

@@ -1,5 +1,5 @@
 """The train and serve steps of the recsys family, for every kind (dlrm,
-xdeepfm, bert4rec, fm).
+xdeepfm, bert4rec, fm), and the LM family's prefill and decode steps.
 
 A train step is ``step(params, opt_state, batch) → (params, opt_state,
 {"loss", "grad_norm"})`` and a serve step ``step(params, batch)``, the
@@ -9,7 +9,9 @@ updates ``params`` and ``opt_state`` in place and returns them, as the
 reference's step donates them (``train.optim``'s docstring says what a
 caller copies). bert4rec serves its next-item top-k through
 ``models.recsys.bert4rec_serve_topk``, as the reference's ``build_cell``
-does.
+does. The LM steps run under ``torch.inference_mode()``; the decode step
+updates its cache in place, as the reference's donates it. LM training
+waits for ROADMAP.md queue 1, item 16.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.core import tree as tree_mod
 from repro_torch.models import recsys as recsys_mod
+from repro_torch.models import transformer as tfm
 from repro_torch.train import optim as optim_mod
 from repro_torch.train.optim import OptimConfig
 
@@ -78,6 +81,29 @@ def _accumulating_step(
 def _split_leading(batch: dict, n: int) -> dict:
     """Each leaf (B, ...) as (n, B/n, ...)."""
     return tree_mod.tree_map(lambda x: x.reshape(n, x.shape[0] // n, *x.shape[1:]), batch)
+
+
+def make_lm_prefill_step(cfg: tfm.TransformerConfig):
+    """Inference prefill: ``step(params, batch) → (B, V)`` f32 logits of
+    the last position of ``batch["tokens"]`` (B, S) (full logits for a 32k
+    prompt would be far larger; serving emits the next-token
+    distribution)."""
+
+    def step(params, batch):
+        return tfm.forward_last(cfg, params, batch["tokens"])
+
+    return step
+
+
+def make_lm_decode_step(cfg: tfm.TransformerConfig):
+    """``step(params, cache, batch) → (cache, (B, V) logits)`` for one
+    token a sequence, ``batch["tokens"]`` (B, 1); ``cache`` is updated in
+    place (``models.transformer.decode_step``)."""
+
+    def step(params, cache, batch):
+        return tfm.decode_step(cfg, params, cache, batch["tokens"])
+
+    return step
 
 
 def make_recsys_train_step(cfg: recsys_mod.RecsysConfig, opt_cfg: OptimConfig):

@@ -1048,3 +1048,118 @@ def test_sharded_save_load_on_card_bit_equal(sharded_case, codec, tmp_path):
         a, b = eng.search(q, SearchParams(k=10)), back.search(q, SearchParams(k=10))
         for field in ("ids", "sqdists", "n_dist_evals", "n_code_evals", "n_hops"):
             assert torch.equal(getattr(a, field), getattr(b, field)), (kind, field)
+
+
+# ---------------------------------------------------------------------------
+# the LM family (no kernel of the port lies on it: plain PyTorch on the card)
+# ---------------------------------------------------------------------------
+
+LM_IDS = ("kimi-k2-1t-a32b", "mistral-large-123b", "mixtral-8x7b", "phi3-mini-3.8b", "yi-34b")
+#: |Δ| ≤ tol·max|cpu| (tests/test_torch_lm.py states both); under MIXED a
+#: MoE token within LM_EPS of a router tie, or whose rank such a tie could
+#: move across the capacity, may route otherwise and is left out
+LM_TOL, LM_EPS = {"FP32": 1e-5, "MIXED": 0.03}, 0.01
+
+
+def _lm(arch, prec, dev):
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import common
+    from repro_torch.models import transformer as tfm
+
+    def to(tree):
+        return {k: to(v) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+    cfg = dataclasses.replace(get_arch(arch).make_reduced(), precision=getattr(common, prec))
+    cpu = tfm.init_params(cfg, seed=2, device="cpu")
+    return cfg, cpu, to(cpu)
+
+
+def _lm_close(got, want, tol, unsure=None):
+    g, w = got.float().cpu(), want.float()
+    err = (g - w).abs()
+    if unsure is not None:
+        err = err[~unsure]
+    assert err.numel() == 0 or float(err.max()) <= tol * float(w.abs().max())
+
+
+@pytest.mark.parametrize("prec", ["FP32", "MIXED"])
+@pytest.mark.parametrize("arch", LM_IDS)
+def test_lm_reduced_on_card_matches_cpu(cuda_dev, arch, prec):
+    """forward at (2, 96), forward_last, loss_fn and 40 decode tokens
+    against a cache of 36 rows: the card against the CPU with the same
+    parameters."""
+    from repro_torch.models import transformer as tfm
+
+    cfg, cpu, card = _lm(arch, prec, cuda_dev)
+    tol = LM_TOL[prec]
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 96), dtype=np.int32))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 96), dtype=np.int32))
+
+    def unsettled(stats, shape):
+        if prec == "FP32" or not cfg.moe:
+            return torch.zeros(shape, dtype=torch.bool)
+        return tfm.unsettled_tokens(cfg, stats["router_logits"], LM_EPS).view(shape)
+
+    stats = {}
+    want = tfm.forward(cfg, cpu, tokens, stats)
+    unsure = unsettled(stats, (2, 96))
+    assert float(unsure.float().mean()) <= 0.5
+    _lm_close(tfm.forward(cfg, card, tokens.to(cuda_dev)), want, tol, unsure)
+    _lm_close(tfm.forward_last(cfg, card, tokens.to(cuda_dev)),
+              tfm.forward_last(cfg, cpu, tokens), tol, unsure[:, -1])
+    batch = {"tokens": tokens, "labels": labels}
+    _lm_close(tfm.loss_fn(cfg, card, {k: v.to(cuda_dev) for k, v in batch.items()})[None],
+              tfm.loss_fn(cfg, cpu, batch)[None], tol)
+    caches = [tfm.init_cache(cfg, 2, 36, device=d) for d in ("cpu", cuda_dev)]
+    n_unsure = 0
+    for _ in range(40):
+        t = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 1), dtype=np.int32))
+        st = {}
+        _, w = tfm.decode_step(cfg, cpu, caches[0], t, st)
+        _, g = tfm.decode_step(cfg, card, caches[1], t.to(cuda_dev))
+        u = unsettled(st, (2,))
+        n_unsure += int(u.sum())
+        _lm_close(g, w, tol, u)
+    assert n_unsure <= 40 and int(caches[1]["len"]) == 40
+
+
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "yi-34b"])
+def test_lm_decode_equals_prefill_on_card(cuda_dev, arch):
+    """A 64-token prompt decoded token by token from an empty cache: each
+    position's logits against forward's there, within 0.03 of max|forward|
+    at that position (MIXED)."""
+    from repro_torch.models import transformer as tfm
+
+    cfg, _, card = _lm(arch, "MIXED", cuda_dev)
+    prompt = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (1, 64), dtype=np.int32)).to(cuda_dev)
+    want = tfm.forward(cfg, card, prompt)[0]
+    cache = tfm.init_cache(cfg, 1, 64, device=cuda_dev)
+    for pos in range(64):
+        _, got = tfm.decode_step(cfg, card, cache, prompt[:, pos:pos + 1])
+        _lm_close(got[0], want[pos].cpu(), LM_TOL["MIXED"])
+
+
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "mixtral-8x7b", "kimi-k2-1t-a32b"])
+def test_lm_decode_and_moe_never_wait_for_the_host(cuda_dev, arch):
+    """decode_step (and moe_ffn alone) under sync debug mode "error": no
+    operation on their path synchronises with the host."""
+    from repro_torch.models import transformer as tfm
+
+    cfg, _, card = _lm(arch, "MIXED", cuda_dev)
+    cache = tfm.init_cache(cfg, 3, 36, device=cuda_dev)
+    tokens = torch.zeros((3, 1), dtype=torch.int32, device=cuda_dev)
+    x = torch.randn((40, cfg.d_model), device=cuda_dev).bfloat16()
+    lp = {k: v[0] for k, v in card["layers"]["ffn"].items()}
+    tfm.decode_step(cfg, card, cache, tokens)  # allocate outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            tfm.decode_step(cfg, card, cache, tokens)
+        if cfg.moe:
+            tfm.moe_ffn(cfg, x, lp, {})
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(cache["len"]) == 4

@@ -206,13 +206,25 @@ def test_configs_match_reference():
 
 
 RECSYS_IDS = sorted(a for a, spec in jregistry.ARCHS.items() if spec.family == "recsys")
+LM_IDS = sorted(a for a, spec in jregistry.ARCHS.items() if spec.family == "lm")
 
 
-@pytest.mark.parametrize("arch_id", sorted(set(jregistry.ARCHS) - set(RECSYS_IDS)))
+@pytest.mark.parametrize("arch_id", sorted(NOT_PORTED))
 def test_unported_arch_raises_naming_its_roadmap_item(arch_id):
-    assert arch_id in NOT_PORTED
+    assert arch_id in jregistry.ARCHS and arch_id not in ARCHS
     with pytest.raises(KeyError, match="ROADMAP.md queue 1, item 16"):
         get_arch(arch_id)
+
+
+@pytest.mark.parametrize("arch_id", LM_IDS)
+def test_get_arch_returns_the_ported_lm_spec(arch_id):
+    spec, ref = get_arch(arch_id), jregistry.get_arch(arch_id)
+    assert arch_id not in NOT_PORTED and spec.family == ref.family == "lm"
+    assert (spec.arch_id, spec.source, spec.micro_batches) == \
+        (ref.arch_id, ref.source, ref.micro_batches)
+    assert [c.name for c in spec.shapes] == [c.name for c in ref.shapes]
+    assert [c.skip_reason for c in spec.shapes] == [c.skip_reason for c in ref.shapes]
+    assert dataclasses.asdict(spec.optim) == dataclasses.asdict(ref.optim)
 
 
 @pytest.mark.parametrize("arch_id", sorted(set(RECSYS_IDS) - {"fm"}))
@@ -225,9 +237,10 @@ def test_get_arch_returns_the_ported_recsys_spec(arch_id):
     assert [c.name for c in spec.shapes] == [c.name for c in ref.shapes]
 
 
-def test_registry_holds_every_recsys_id():
-    assert sorted(ARCHS) == RECSYS_IDS
+def test_registry_holds_every_recsys_and_lm_id():
+    assert sorted(ARCHS) == sorted(RECSYS_IDS + LM_IDS)
     assert set(ARCHS) | set(NOT_PORTED) == set(jregistry.ARCHS)
+    assert not set(ARCHS) & set(NOT_PORTED)
 
 
 def test_unported_kinds_raise():
@@ -242,6 +255,7 @@ def test_unported_kinds_raise():
     with pytest.raises(ValueError, match="unknown recsys kind"):
         trecsys.user_tower(cfg, {}, {})
     for spec in ARCHS.values():
-        assert trecsys.abstract_params(spec.make_reduced())
+        if spec.family == "recsys":
+            assert trecsys.abstract_params(spec.make_reduced())
     with pytest.raises(KeyError):
         get_arch("no-such-arch")

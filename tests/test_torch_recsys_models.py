@@ -292,7 +292,7 @@ def test_param_count_on_meta_equals_reference(arch):
     leaves = list(tcommon.leaves(ab))
     assert leaves and all(t.device.type == "meta" and t.dtype == torch.float32 for t in leaves)
     ref = jax.tree.map(lambda a: tuple(a.shape), jrecsys.abstract_params(jmod.make_config()))
-    mine = trecsys._map_shapes(trecsys.param_shapes(tcfg), lambda _, s: tuple(s))
+    mine = tcommon.map_shapes(trecsys.param_shapes(tcfg), lambda _, s: tuple(s))
     assert mine == ref
     assert tcommon.tree_bytes(ab) == 4 * tcfg.param_count
 
@@ -314,8 +314,8 @@ def test_init_params_is_seeded_shaped_and_scaled(arch):
     pairs = list(zip(tcommon.leaves(a), tcommon.leaves(b)))
     assert all(torch.equal(x, y) for x, y in pairs)
     assert not all(torch.equal(x, y) for x, y in zip(tcommon.leaves(a), tcommon.leaves(c)))
-    shapes = trecsys._map_shapes(trecsys.param_shapes(cfg), lambda _, s: tuple(s))
-    assert trecsys._map_shapes(a, lambda _, t: tuple(t.shape)) == shapes
+    shapes = tcommon.map_shapes(trecsys.param_shapes(cfg), lambda _, s: tuple(s))
+    assert tcommon.map_shapes(a, lambda _, t: tuple(t.shape)) == shapes
     if cfg.kind == "bert4rec":
         assert torch.equal(a["blocks"]["wq"][0], a["blocks"]["wq"][-1])  # stacked, as the reference
         assert float(a["item_embed"].std()) == pytest.approx(0.02, rel=0.1)
