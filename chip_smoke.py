@@ -33,9 +33,10 @@ Phases:
      (B·N·S lookups over SMs x 32 a clock at the card's maximum SM clock)
   3. small input (N = 20,000): the main path on the card against the same
      path on the CPU (plain versions); MATCH recall@10 must reach 0.5 on the
-     card and stay within 0.02 of the CPU's; then Engine.build with pq4 and
-     pq codecs (S=64) on both, graph and brute MATCH recall@10 against the
-     exact oracle within 0.02 of the CPU's
+     card and stay within 0.02 of the CPU's; then the pq4 and pq codecs
+     (S=64) trained over that engine's rows and attached to its graph on
+     both (what Engine.build with a codec builds), graph and brute MATCH
+     recall@10 against the exact oracle within 0.02 of the CPU's
   4. main path: Engine.build on the sift profile, then Engine.search on the
      graph backend and on the brute oracle for MATCH, subset, ONE_OF and
      BETWEEN batches of 128 (recall@10, latency, QPS, evals, hops), a pool
@@ -174,11 +175,28 @@ Phases:
      a generator, each timed (ms, tokens/s, model TFLOP/s, peak memory,
      decode against its bytes bound), profiled once (busy share, top ops,
      MoE drops), the attention's part of prefill from one q-chunk's time;
-     device memory back to its level after. Last of all, one more
-     Engine.build of phase 4's data under the profiler
+     device memory back to its level after. Then LM training (no kernel of
+     the port on it either): the five reduced configs card against CPU
+     under FP32 and MIXED (one micro-batched step's loss, gradient norm and
+     gradients; MoE under MIXED on the sequences no router near-tie
+     unsettles), remat on against off bit for bit on the card; train_4k
+     (S=4,096, MIXED, AdamW, the spec's micro_batches, remat) at full
+     width: phi3-mini-3.8b on the deepest stack that leaves a quarter of
+     the card free (measured from two shallow probes) at B=2, mixtral-8x7b
+     on 1 layer at B=4: median step ms, tokens/s, model TFLOP/s, peak over
+     the resident state, one profiled step, MoE drops. Then the GNN:
+     graphcast card against CPU (graphcast-smoke under FP32 and MIXED,
+     full_graph_sm at full width under FP32: loss, gradients, infer), then
+     graphcast at full width and depth (16 layers, d=512, MIXED, AdamW) on
+     full_graph_sm, minibatch_lg (a fanout sample of a Reddit-sized random
+     graph, edges cut by 8), ogb_products (nodes and edges cut by the
+     smallest power of two that fits, from two probes) and molecule: train
+     and infer ms, edges/s, model TFLOP/s, peak, one profiled step. Last
+     of all, one more Engine.build of phase 4's data under the profiler
   6. a JSON line of every kernel's launches in phases 4 and 5 (the exact,
      serve, quantized, partitioned, tiered, sharded, mutable, recsys,
-     recsys-model, training and LM paths, each counted from 0; a kernel of
+     recsys-model, training, LM, LM-training and GNN paths, each counted
+     from 0; a kernel of
      a path that the path never launched fails the run), error and times
 
 At N = 1M this dataset's graph recall is low (the AUTO-built HELP graph
@@ -314,6 +332,42 @@ LM_PROMPT = 64
 #: 23.7 GB with the embeddings in bf16); decode ms a token is the median of
 #: LM_DECODE_REPS steps after a warm-up
 LM_MEM_SHARE, MIXTRAL_LAYERS, LM_DECODE_REPS = 0.75, 8, 20
+#: phase 5's LM training step: the train_4k cell (S = 4,096) under MIXED
+#: (f32 master parameters, bf16 compute), each spec's AdamW and
+#: micro_batches, every layer checkpointed (remat). (arch, layers, B):
+#: phi3-mini-3.8b at full width on the deepest stack that leaves a quarter
+#: of the card free (None: two steps' peak at each of LM_TRAIN_PROBE layers
+#: gives the peak a layer), B = 2, one sequence a micro-batch; mixtral-8x7b
+#: at full width on 1 layer (2 would take 63 GB at 20 B a parameter), B =
+#: 4. Step ms: the median of LM_TRAIN_STEPS after one warm-up
+LM_TRAIN_CELLS = (("phi3-mini-3.8b", None, 2), ("mixtral-8x7b", 1, 4))
+LM_TRAIN_PROBE, LM_TRAIN_STEPS = (2, 4), 3
+#: the card against the CPU at the reduced configs: one step's batch (B, S)
+#: with the spec's micro_batches; under MIXED the MoE archs instead take the
+#: sequences of LM_TRAIN_MOE_S tokens (the spec's micro_batches of them from
+#: each of LM_TRAIN_MOE_SEEDS seeds) that no router near-tie unsettles, as
+#: one micro-batched step a sequence a micro-batch (at least half held)
+LM_TRAIN_SMALL, LM_TRAIN_MOE_SEEDS, LM_TRAIN_MOE_S = (8, 16), 8, 2
+#: phase 5's GNN step: graphcast at full width and depth (16 layers, d =
+#: 512) under MIXED with its AdamW (lr 1e-3), make_config(cell) for each
+#: GNN_SHAPES cell. minibatch_lg samples 1,024 seeds with fanouts (15, 10)
+#: from a random graph of Reddit's 232,965 nodes and 602 features and its
+#: 114,615,892 edges cut by GNN_REDDIT_EDGE_CUT (numpy draws it on the
+#: host: 8.4 s at the cut, ≈ 67 s whole); the sample's shape is the cell's.
+#: ogb_products runs with its nodes and edges cut by the smallest power of
+#: two that leaves a quarter of the card free (two steps' peak at each of
+#: GNN_OGB_PROBE cuts gives the peak an edge). Train and infer ms: the
+#: median of GNN_STEPS after one warm-up
+GNN_REDDIT = (232_965, 114_615_892, 602, 41)
+GNN_REDDIT_EDGE_CUT, GNN_OGB_PROBE, GNN_STEPS = 8, (512, 256), 5
+#: the card against the CPU at graphcast-smoke: GNN_SMALL = (N, E), every
+#: node reached by one edge plus E random ones (mean in-degree 5), 20% of
+#: the edges masked, 70% of the nodes in the loss; and at full_graph_sm's
+#: full width under FP32 on GNN_FULL_CHECK_LAYERS layers: deeper, the f32
+#: gradients move by ~1e-4 of their scale when the features move by 1e-7
+#: (ReLU gates flip), which check_gnn_small measures on the CPU at both
+#: depths (GNN_PERTURB)
+GNN_SMALL, GNN_FULL_CHECK_LAYERS, GNN_PERTURB = (64, 256), 2, 1e-7
 #: fm_interaction's gradient, card against CPU, at B x F x D besides the
 #: training shape
 FM_GRAD_SHAPES = tuple((b, f, d) for b in (1, 255, 257) for f in (1, 39) for d in (1, 10, 64))
@@ -905,8 +959,9 @@ def predicate_batches(ds, b: int = 128) -> dict:
     }
 
 
-def match_recall(dev, ds) -> float:
-    """Engine.build + MATCH graph search recall@10 against the brute oracle."""
+def match_recall(dev, ds) -> tuple[float, object]:
+    """Engine.build + MATCH graph search recall@10 against the brute
+    oracle; returns the recall and the engine."""
     from repro_torch.api import Engine, QueryBatch, SearchParams
     from repro_torch.core.baselines import recall_at_k
 
@@ -914,7 +969,7 @@ def match_recall(dev, ds) -> float:
     q = QueryBatch.match(ds.query_features[:128], ds.query_attrs[:128])
     g = eng.search(q, SearchParams(k=10, backend="graph"))
     o = eng.search(q, SearchParams(k=10, backend="brute"))
-    return recall_at_k(g.ids.cpu(), o.ids.cpu(), 10)
+    return recall_at_k(g.ids.cpu(), o.ids.cpu(), 10), eng
 
 
 def check_small_input(dev, seed: int) -> dict:
@@ -923,9 +978,9 @@ def check_small_input(dev, seed: int) -> dict:
     from repro_torch.data.synthetic import make_hybrid_dataset
 
     ds = make_hybrid_dataset(n=SMALL_N, n_queries=128, profile="sift", seed=seed)
-    card = match_recall(dev, ds)
+    card, card_eng = match_recall(dev, ds)
     t0 = time.perf_counter()
-    cpu = match_recall(torch.device("cpu"), ds)
+    cpu, cpu_eng = match_recall(torch.device("cpu"), ds)
     log(f"  N={SMALL_N}: MATCH recall@10 card {card:.4f}, CPU plain versions {cpu:.4f} "
         f"(CPU run {time.perf_counter() - t0:.1f} s)")
     if card < MATCH_RECALL_FLOOR:
@@ -935,9 +990,9 @@ def check_small_input(dev, seed: int) -> dict:
     out = {"n": SMALL_N, "recall_card": card, "recall_cpu": cpu}
     for mode in ("pq4", "pq"):
         t0 = time.perf_counter()
-        on_card = quant_match_recall(dev, ds, mode)
+        on_card = quant_match_recall(card_eng, ds, mode)
         t1 = time.perf_counter()
-        on_cpu = quant_match_recall(torch.device("cpu"), ds, mode)
+        on_cpu = quant_match_recall(cpu_eng, ds, mode)
         log(f"  N={SMALL_N} {mode} S={ADC_S}: MATCH recall@10 card {on_card}, CPU {on_cpu} "
             f"(card {t1 - t0:.1f} s, CPU {time.perf_counter() - t1:.1f} s)")
         for backend, r in on_card.items():
@@ -948,15 +1003,17 @@ def check_small_input(dev, seed: int) -> dict:
     return out
 
 
-def quant_match_recall(dev, ds, mode: str) -> dict:
-    """Engine.build with a codec, then MATCH recall@10 of the graph and
+def quant_match_recall(exact, ds, mode: str) -> dict:
+    """The codec trained over the built exact engine's rows and attached to
+    its graph (what Engine.build with the codec builds: the graph over the
+    exact rows, then the codec), then MATCH recall@10 of the graph and
     brute backends against the exact oracle."""
     from repro_torch.api import Engine, QueryBatch, SearchParams
     from repro_torch.core.baselines import recall_at_k
-    from repro_torch.quant import QuantConfig
+    from repro_torch.quant import QuantConfig, QuantizedVectors
 
-    eng = Engine.build(ds.features, ds.attrs, quant_cfg=QuantConfig(mode, pq_subspaces=ADC_S),
-                       device=dev)
+    store = QuantizedVectors.build(exact.index.features, QuantConfig(mode, pq_subspaces=ADC_S))
+    eng = Engine(dataclasses.replace(exact.index, quant=store))
     q = QueryBatch.match(ds.query_features[:128], ds.query_attrs[:128])
     oracle = eng.search(q, SearchParams(k=10, backend="brute", quant="none")).ids.cpu()
     return {b: recall_at_k(eng.search(q, SearchParams(k=10, backend=b)).ids.cpu(), oracle, 10)
@@ -3949,6 +4006,538 @@ def run_lm_path(dev, seed: int) -> dict:
     return out
 
 
+def lm_train_small_batch(cfg, spec, seed: int) -> tuple[dict, int, str]:
+    """``check_lm_train_small``'s CPU batch and its micro-batch count: the
+    LM_TRAIN_SMALL batch with the spec's micro_batches; for a MoE config
+    under bf16 compute, the settled LM_TRAIN_MOE_S-token sequences (router
+    logits of the CPU's forward, ``unsettled_tokens`` at LM_EPS), a
+    micro-batch each."""
+    from repro_torch.models import transformer as tfm
+
+    if not (cfg.moe and cfg.precision.compute_dtype == torch.bfloat16):
+        b, s = LM_TRAIN_SMALL
+        rng = np.random.default_rng(seed + 31)
+        return ({k: torch.from_numpy(rng.integers(0, cfg.vocab, (b, s), dtype=np.int32))
+                 for k in ("tokens", "labels")}, spec.micro_batches, "")
+    params = tfm.init_params(cfg, seed=seed, device="cpu")
+    seqs = []
+    for i in range(LM_TRAIN_MOE_SEEDS):
+        rng = np.random.default_rng(seed + 100 + i)
+        t, lab = (torch.from_numpy(rng.integers(0, cfg.vocab, (spec.micro_batches,
+                                                               LM_TRAIN_MOE_S), dtype=np.int32))
+                  for _ in range(2))
+        seqs += [(t[j:j + 1], lab[j:j + 1]) for j in range(spec.micro_batches)]
+    held = []
+    for t, lab in seqs:
+        stats = {}
+        with torch.no_grad():
+            tfm.forward(cfg, params, t, stats)
+        if not bool(tfm.unsettled_tokens(cfg, stats["router_logits"], LM_EPS).any()):
+            held.append((t, lab))
+    if len(held) < len(seqs) / 2:
+        raise SystemExit(f"{spec.arch_id} MIXED train: only {len(held)} of {len(seqs)} "
+                         f"sequences settled")
+    return ({"tokens": torch.cat([t for t, _ in held]), "labels": torch.cat([x for _, x in held])},
+            len(held), f"{len(held)} of {len(seqs)} sequences settled")
+
+
+def check_lm_train_small(dev, seed: int) -> dict:
+    """Phase 5, LM training: each reduced config, the card against the CPU
+    with the same parameters (drawn on the CPU from ``seed``) under FP32
+    and MIXED: one micro-batched step's loss, gradient norm and every
+    accumulated gradient (``train.step.accumulated_grads``, what
+    make_lm_train_step applies) within MODEL_TOL (``check_close``, the
+    bf16 slack against the CPU's f32 gradient); then on the card the
+    gradients of one micro-batch with every layer checkpointed against
+    without, bit for bit."""
+    import functools
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import tree
+    from repro_torch.models import common
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.optim import _global_norm
+    from repro_torch.train.step import _split_leading, accumulated_grads, loss_and_grads
+
+    out = {}
+    for arch in LM_IDS:
+        spec = get_arch(arch)
+        for prec in ("FP32", "MIXED"):
+            cfg = dataclasses.replace(spec.make_reduced(), precision=getattr(common, prec))
+            tol, label = MODEL_TOL[prec], f"{arch} reduced {prec} train"
+            cpu = tfm.init_params(cfg, seed=seed, device="cpu")
+            card = tree_to(cpu, dev)
+            batch, micro, held = lm_train_small_batch(cfg, spec, seed)
+            card_batch = {k: v.to(dev) for k, v in batch.items()}
+            fn = functools.partial(tfm.loss_fn, cfg)
+            want_l, want_g = accumulated_grads(fn, cpu, batch, micro, _split_leading)
+            got_l, got_g = accumulated_grads(fn, card, card_batch, micro, _split_leading)
+            want32 = [None] * len(tree.leaves(want_g))
+            if prec == "MIXED":
+                fn32 = functools.partial(tfm.loss_fn, dataclasses.replace(cfg, precision=common.FP32))
+                want32 = tree.leaves(accumulated_grads(fn32, cpu, batch, micro, _split_leading)[1])
+            r = {"micro_batches": micro,
+                 "loss_rel_err": check_close(got_l, want_l, tol, f"{label} loss"),
+                 "grad_norm_rel_err": check_close(_global_norm(got_g), _global_norm(want_g), tol,
+                                                  f"{label} grad norm"),
+                 "grad_worst_rel_err": max(
+                     check_close(g, w, tol, f"{label} grad {n}", w32)
+                     for (n, g), w, w32 in zip(tree.flatten_with_paths(got_g),
+                                               tree.leaves(want_g), want32))}
+            if held:
+                r["held"] = held
+            first = {k: v[0] for k, v in _split_leading(card_batch, micro).items()}
+            on = loss_and_grads(fn, card, first)
+            off = loss_and_grads(functools.partial(tfm.loss_fn,
+                                                   dataclasses.replace(cfg, remat=False)),
+                                 card, first)
+            r["remat_bitwise"] = bool(torch.equal(on[0], off[0])) and all(
+                torch.equal(a, b) for a, b in zip(tree.leaves(on[1]), tree.leaves(off[1])))
+            log(f"  {label} B={tuple(batch['tokens'].shape)} micro_batches={micro}: loss "
+                f"{float(want_l):.5f} (card {float(got_l):.5f}); " + ", ".join(
+                    f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}" for k, v in r.items()))
+            if not r["remat_bitwise"]:
+                raise SystemExit(f"{label}: gradients with remat differ from those without on "
+                                 f"the card")
+            out[f"{arch} {prec}"] = r
+            del card, got_g
+    return out
+
+
+def lm_train_run(dev, spec, cfg, b: int, seed: int, steps: int, first=None) -> dict:
+    """``steps`` steps of make_lm_train_step (the spec's optimizer and
+    micro_batches) at batch ``b`` of the train_4k cell, through
+    launch/train.py's batch stream, parameters and state drawn on the card.
+    Returns the peak allocated bytes, the resident bytes before the steps,
+    host ms a step to a synchronised loss, losses and gradient norms, and
+    the parameters, state, step and last batch (dropping the dict frees
+    them). ``first(params, batch)`` runs before the first step."""
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.optim import init_state
+    from repro_torch.train.step import make_lm_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = tfm.init_params(cfg, seed=seed, device=dev)
+    state = init_state(spec.optim, params)
+    step = make_lm_train_step(cfg, spec.optim, spec.micro_batches)
+    batches = make_batch_fn(spec, cfg, b, spec.cell("train_4k").seq_len, dev)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lat, losses, norms = [], [], []
+    if first is not None:
+        first(params, batches(0))
+    for i in range(steps):
+        batch = batches(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return dict(peak=torch.cuda.max_memory_allocated(), resident=resident, lat=lat,
+                losses=losses, norms=norms, params=params, state=state, step=step, batch=batch)
+
+
+def moe_drops(cfg, spec, params, batch) -> tuple[int, int]:
+    """(dropped, assignments) of the capacity over ``batch``'s micro-batches,
+    each routed alone as the train step routes it."""
+    from repro_torch.models import transformer as tfm
+
+    stats, per = {}, batch["tokens"].shape[0] // spec.micro_batches
+    with torch.no_grad():
+        for j in range(spec.micro_batches):
+            tfm.forward(cfg, params, batch["tokens"][j * per:(j + 1) * per], stats)
+    return int(stats["dropped"]), stats["assignments"]
+
+
+def lm_train_step(dev, arch: str, n_layers, b: int, seed: int) -> dict:
+    """Phase 5, one LM arch's train step at full width (MIXED, remat):
+    with ``n_layers`` None, two steps at each of LM_TRAIN_PROBE depths give
+    the peak a layer, and the deepest stack under LM_MEM_SHARE of the card
+    is taken. One warm-up step and LM_TRAIN_STEPS timed: median step ms,
+    tokens/s, model TFLOP/s (``model_flops``: 6·active parameters·tokens),
+    the peak over the resident parameters and state (it must stay under
+    the share), every loss finite and the first within 1 of ln V, every
+    parameter moved; one profiled step (busy share, top ops); for MoE the
+    capacity's drops over the first batch's micro-batches before the first
+    step and over the last batch's after the last."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import tree
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import tree_bytes
+
+    spec = get_arch(arch)
+    base = spec.make_config()
+    cell = spec.cell("train_4k")
+    s = cell.seq_len
+    budget = LM_MEM_SHARE * torch.cuda.get_device_properties(dev).total_memory
+    out = {"batch": b, "seq_len": s, "micro_batches": spec.micro_batches}
+    if n_layers is None:
+        peaks = []
+        for depth in LM_TRAIN_PROBE:
+            r = lm_train_run(dev, spec, dataclasses.replace(base, n_layers=depth), b, seed, 2)
+            peaks.append(r["peak"])
+            del r
+        lo, hi = LM_TRAIN_PROBE
+        per_layer = max(peaks[1] - peaks[0], 1) / (hi - lo)
+        n_layers = min(base.n_layers, lo + int((budget - peaks[0]) // per_layer))
+        out["probe"] = {"layers": LM_TRAIN_PROBE, "peak_gb": [p / 1e9 for p in peaks],
+                        "per_layer_gb": per_layer / 1e9, "budget_gb": budget / 1e9}
+        log(f"  {arch} train probe: peak {peaks[0] / 1e9:.3f} / {peaks[1] / 1e9:.3f} GB at "
+            f"{lo} / {hi} layers, {per_layer / 1e9:.3f} GB a layer; {n_layers} layers fit "
+            f"{budget / 1e9:.1f} GB")
+    cfg = dataclasses.replace(base, n_layers=n_layers)
+    label = f"{arch} train_4k ({n_layers} layers) B={b}"
+    init = {}
+    r = lm_train_run(dev, spec, cfg, b, seed, LM_TRAIN_STEPS + 1,
+                     (lambda p, bt: init.update(drops=moe_drops(cfg, spec, p, bt))) if cfg.moe
+                     else None)
+    params, state, step, batch = r["params"], r["state"], r["step"], r["batch"]
+    lat, losses = r["lat"][1:], r["losses"]
+    med = statistics.median(lat)
+    flops = tfm.model_flops(cfg, dataclasses.replace(cell, global_batch=b))
+    before = {n: p.reshape(-1)[:4096].clone() for n, p in tree.flatten_with_paths(params)}
+    out.update(layers=n_layers, params=cfg.param_count, median_ms=med, min_ms=min(lat),
+               max_ms=max(lat), tokens_per_s=b * s / med * 1e3, model_flops=flops,
+               model_tflops_per_s=flops / med / 1e9, peak_gb=r["peak"] / 1e9,
+               resident_gb=r["resident"] / 1e9,
+               peak_over_resident_gb=(r["peak"] - r["resident"]) / 1e9,
+               param_gb=tree_bytes(params) / 1e9,
+               state_gb=sum(x.numel() * x.element_size() for x in tree.leaves(state)) / 1e9,
+               losses=losses, grad_norms=r["norms"], budget_gb=budget / 1e9)
+    log(f"  {label}: median {med:.3f} ms (min {min(lat):.3f}, max {max(lat):.3f}, "
+        f"{LM_TRAIN_STEPS} steps), {out['tokens_per_s']:.1f} tokens/s, model "
+        f"{out['model_tflops_per_s']:.3f} TFLOP/s ({100 * flops / med * 1e3 / PEAK_BF16_FLOPS:.2f}% "
+        f"of the bf16 peak); peak {out['peak_gb']:.3f} GB of a {budget / 1e9:.1f} GB budget, "
+        f"{out['peak_over_resident_gb']:.3f} over the resident {out['resident_gb']:.3f} GB "
+        f"(parameters {out['param_gb']:.3f}, state {out['state_gb']:.3f}); losses "
+        + ", ".join(f"{v:.5f}" for v in losses) + f"; grad norm {r['norms'][0]:.4e}")
+    if not all(math.isfinite(v) for v in losses + r["norms"]):
+        raise SystemExit(f"{label}: a loss or gradient norm is not finite")
+    if abs(losses[0] - math.log(cfg.vocab)) > 1.0:
+        raise SystemExit(f"{label}: first loss {losses[0]:.4f} is not within 1 of ln V")
+    if r["peak"] > budget:
+        raise SystemExit(f"{label}: peak {r['peak'] / 1e9:.3f} GB leaves less than a quarter "
+                         f"of the card free")
+    out["profile"] = profile_call(label, lambda: step(params, state, batch), warmup=False)
+    moved = [n for n, p in tree.flatten_with_paths(params)
+             if torch.equal(before[n], p.reshape(-1)[:4096])]
+    if moved:
+        raise SystemExit(f"{label}: parameters did not move in the profiled step: {moved}")
+    if cfg.moe:
+        out["dropped_at_init"] = init["drops"][0]
+        out["dropped"], out["assignments"] = moe_drops(cfg, spec, params, batch)
+        log(f"  {label}: {out['dropped_at_init']} of {out['assignments']} assignments dropped by "
+            f"the capacity before the first step, {out['dropped']} after the last "
+            f"({LM_TRAIN_STEPS + 2} steps)")
+    del params, state, step, batch, r, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_lm_train_path(dev, seed: int) -> dict:
+    """Phase 5's LM training step: ``check_lm_train_small``, then each of
+    LM_TRAIN_CELLS (``lm_train_step``), each freed before the next. Device
+    memory must come back to its level before the step."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = {"small": check_lm_train_small(dev, seed)}
+    out["small_s"] = time.perf_counter() - t0
+    log(f"  LM train card against CPU: {out['small_s']:.2f} s")
+    for arch, layers, b in LM_TRAIN_CELLS:
+        out[arch] = lm_train_step(dev, arch, layers, b, seed)
+    after = torch.cuda.memory_allocated()
+    log(f"  LM train step: device memory {before} B before, {after} B after")
+    if after > before + (64 << 20):
+        raise SystemExit(f"LM train step: {after - before} B still allocated after the models "
+                         f"were freed")
+    return out
+
+
+def gnn_small_batch(n: int, e: int, d_in: int, d_out: int, seed: int) -> dict:
+    """A numpy graph of n nodes, each reached by one edge, plus e random
+    edges; 20% of the edges masked out, 70% of the nodes in the loss."""
+    rng = np.random.default_rng(seed)
+    dst = np.concatenate([np.arange(n), rng.integers(0, n, e)]).astype(np.int32)
+    return {"node_feats": rng.normal(size=(n, d_in)).astype(np.float32),
+            "src": rng.integers(0, n, dst.size).astype(np.int32), "dst": dst,
+            "edge_mask": rng.random(dst.size) < 0.8,
+            "targets": rng.normal(size=(n, d_out)).astype(np.float32),
+            "node_mask": (rng.random(n) < 0.7).astype(np.float32)}
+
+
+def gnn_cell_batch(name: str, cut: int = 1, seed: int = 0) -> dict:
+    """The numpy batch of one GNN_SHAPES cell (``cut`` divides
+    ogb_products' padded nodes and edges), with edge_mask and node_mask."""
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.data import graph
+
+    cell = {c.name: c for c in GNN_SHAPES}[name]
+    if name == "minibatch_lg":
+        n, e, f, o = GNN_REDDIT
+        g = graph.make_random_graph(n, e // GNN_REDDIT_EDGE_CUT, f, o, seed=seed, build_csr=True)
+        sub = graph.sample_fanout(g, np.arange(1024), (15, 10), seed=seed + 1)
+        batch = graph.subgraph_batch(g, sub)
+    else:
+        if name == "full_graph_sm":
+            g = graph.make_random_graph(2708, 10556, cell.d_feat, cell.d_out, seed=seed)
+        elif name == "ogb_products":
+            g = graph.make_random_graph(cell.n_nodes // cut, cell.n_edges // cut, cell.d_feat,
+                                        cell.d_out, seed=seed)
+        else:
+            g = graph.make_molecule_batch(128, 30, 64, cell.d_feat, cell.d_out, seed=seed)
+        n_edges = cell.n_edges // cut
+        pad = n_edges - g.n_edges
+        batch = {"node_feats": g.node_feats,
+                 "src": np.concatenate([g.src, np.zeros(pad, np.int32)]),
+                 "dst": np.concatenate([g.dst, np.zeros(pad, np.int32)]),
+                 "edge_mask": np.arange(n_edges) < g.n_edges,
+                 "targets": g.targets.astype(np.float32),
+                 "node_mask": np.ones(g.n_nodes, np.float32)}
+    if batch["src"].shape[0] != cell.n_edges // cut or \
+            batch["node_feats"].shape != (cell.n_nodes // cut, cell.d_feat):
+        raise SystemExit(f"{name}: batch shapes {batch['node_feats'].shape} nodes, "
+                         f"{batch['src'].shape} edges against the cell's")
+    return batch
+
+
+def gnn_model_flops(cfg, n: int, e: int) -> float:
+    """The reference's count for one train step (launch/build.py:184-186):
+    3 × (L·(6d²E + 4d²N) + 2·d_feat·d·N + 2·d·d_out·N)."""
+    d = cfg.d_hidden
+    return 3.0 * (cfg.n_layers * (6 * d * d * e + 4 * d * d * n)
+                  + 2 * cfg.d_in * d * n + 2 * d * cfg.d_out * n)
+
+
+def gnn_train_peak(dev, spec, cfg, batch_np: dict, seed: int) -> int:
+    """Peak allocated bytes over two GNN train steps of ``cfg`` on
+    ``batch_np`` (everything freed after)."""
+    from repro_torch.models import gnn
+    from repro_torch.train.optim import init_state
+    from repro_torch.train.step import make_gnn_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = gnn.init_params(cfg, seed=seed, device=dev)
+    state = init_state(spec.optim, params)
+    step = make_gnn_train_step(cfg, spec.optim)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        params, state, m = step(params, state, batch)
+        float(m["loss"])
+    peak = torch.cuda.max_memory_allocated()
+    del params, state, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return peak
+
+
+def gnn_cell(dev, spec, name: str, batch_np: dict, seed: int, label: str) -> dict:
+    """One GNN cell at full width: parameters and AdamW state drawn on the
+    card; make_gnn_train_step timed (one warm-up, the median of GNN_STEPS
+    on the host clock to a synchronised loss), edges/s and model TFLOP/s
+    (the reference's count), the peak over the resident parameters and
+    state (under the budget), every loss finite; make_gnn_infer_step timed
+    likewise, its output finite and of the cell's shape; one profiled train
+    step (busy share, top ops)."""
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.models import gnn
+    from repro_torch.models.common import tree_bytes
+    from repro_torch.train.optim import init_state
+    from repro_torch.train.step import make_gnn_infer_step, make_gnn_train_step
+
+    cell = {c.name: c for c in GNN_SHAPES}[name]
+    cfg = spec.make_config(cell)
+    budget = LM_MEM_SHARE * torch.cuda.get_device_properties(dev).total_memory
+    n, e = batch_np["node_feats"].shape[0], batch_np["src"].shape[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = gnn.init_params(cfg, seed=seed, device=dev)
+    state = init_state(spec.optim, params)
+    step, infer = make_gnn_train_step(cfg, spec.optim), make_gnn_infer_step(cfg)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lat, losses = [], []
+    for i in range(GNN_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        if i:
+            lat.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    infer_lat = []
+    for i in range(GNN_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = infer(params, batch)
+        torch.cuda.synchronize()
+        if i:
+            infer_lat.append((time.perf_counter() - t0) * 1e3)
+    if tuple(y.shape) != (n, cfg.d_out) or not bool(torch.isfinite(y).all()):
+        raise SystemExit(f"{label}: infer output {tuple(y.shape)} not finite or not (N, d_out)")
+    med, imed = statistics.median(lat), statistics.median(infer_lat)
+    flops = gnn_model_flops(cfg, n, e)
+    out = dict(nodes=n, edges=e, d_in=cfg.d_in, d_out=cfg.d_out, layers=cfg.n_layers,
+               median_ms=med, min_ms=min(lat), max_ms=max(lat), edges_per_s=e / med * 1e3,
+               model_flops=flops, model_tflops_per_s=flops / med / 1e9, peak_gb=peak / 1e9,
+               resident_gb=resident / 1e9, peak_over_resident_gb=(peak - resident) / 1e9,
+               param_gb=tree_bytes(params) / 1e9, infer_median_ms=imed, losses=losses)
+    log(f"  {label} N={n} E={e}: train median {med:.3f} ms (min {min(lat):.3f}, max "
+        f"{max(lat):.3f}, {GNN_STEPS} steps), {out['edges_per_s']:.4g} edges/s, model "
+        f"{out['model_tflops_per_s']:.3f} TFLOP/s; peak {peak / 1e9:.3f} GB, "
+        f"{(peak - resident) / 1e9:.3f} over the resident {resident / 1e9:.3f} GB; infer median "
+        f"{imed:.3f} ms; losses " + ", ".join(f"{v:.5f}" for v in losses))
+    if not all(math.isfinite(v) for v in losses):
+        raise SystemExit(f"{label}: a loss is not finite: {losses}")
+    if peak > budget:
+        raise SystemExit(f"{label}: peak {peak / 1e9:.3f} GB leaves less than a quarter of the "
+                         f"card free")
+    out["profile"] = profile_call(f"{label} train step", lambda: step(params, state, batch),
+                                  warmup=False)
+    del params, state, batch, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_gnn_small(dev, seed: int) -> dict:
+    """Phase 5, GNN: the card against the CPU with the same parameters
+    (drawn on the CPU from ``seed``): graphcast-smoke under FP32 and MIXED
+    on the GNN_SMALL graph (the loss, every gradient within MODEL_TOL, the
+    bf16 slack against the CPU's f32 gradient; the infer step's output),
+    then the full_graph_sm cell at full width under FP32 on
+    GNN_FULL_CHECK_LAYERS layers (loss and every gradient within
+    1e-5·max|cpu|). Prints the CPU's own gradients' move when the features
+    move by GNN_PERTURB (relative, N(0, 1)) at that depth and at full
+    depth: the model's conditioning, against which the bar is set."""
+    import functools
+
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import tree
+    from repro_torch.models import common, gnn
+    from repro_torch.train.step import loss_and_grads, make_gnn_infer_step
+
+    spec = get_arch("graphcast")
+    cases = []
+    for prec in ("FP32", "MIXED"):
+        cfg = dataclasses.replace(spec.make_reduced(), precision=getattr(common, prec))
+        cases.append((f"graphcast-smoke {prec}", cfg, prec,
+                      gnn_small_batch(*GNN_SMALL, cfg.d_in, cfg.d_out, seed + 41)))
+    full = {c.name: c for c in GNN_SHAPES}["full_graph_sm"]
+    full_batch = gnn_cell_batch("full_graph_sm", seed=seed)
+    cases.append((f"graphcast full_graph_sm FP32 ({GNN_FULL_CHECK_LAYERS} layers)",
+                  spec.make_config(full, precision=common.FP32, n_layers=GNN_FULL_CHECK_LAYERS),
+                  "FP32", full_batch))
+    out = {"conditioning": {}}
+    cpu_b = {k: torch.from_numpy(v) for k, v in full_batch.items()}
+    noise = torch.randn(cpu_b["node_feats"].shape, generator=torch.Generator().manual_seed(seed))
+    moved_b = dict(cpu_b, node_feats=cpu_b["node_feats"] * (1 + GNN_PERTURB * noise))
+    for layers in (GNN_FULL_CHECK_LAYERS, spec.make_config(full).n_layers):
+        cfg = spec.make_config(full, precision=common.FP32, n_layers=layers)
+        params = gnn.init_params(cfg, seed=seed, device="cpu")
+        fn = functools.partial(gnn.loss_fn, cfg)
+        g0, g1 = (loss_and_grads(fn, params, b)[1] for b in (cpu_b, moved_b))
+        moves = {n: float((a - b).abs().max() / b.abs().max())
+                 for (n, a), b in zip(tree.flatten_with_paths(g1), tree.leaves(g0))}
+        worst = max(moves, key=moves.get)
+        out["conditioning"][layers] = {"worst_leaf": worst, "move": moves[worst]}
+        log(f"  graphcast full_graph_sm FP32, {layers} layers, CPU: features moved by "
+            f"{GNN_PERTURB:g} move the gradients by up to {moves[worst]:.3e} of their scale "
+            f"({worst})")
+        del params, g0, g1
+    for label, cfg, prec, batch in cases:
+        tol = MODEL_TOL[prec]
+        cpu_b = {k: torch.from_numpy(v) for k, v in batch.items()}
+        card_b = {k: v.to(dev) for k, v in cpu_b.items()}
+        cpu = gnn.init_params(cfg, seed=seed, device="cpu")
+        card = tree_to(cpu, dev)
+        fn = functools.partial(gnn.loss_fn, cfg)
+        t0 = time.perf_counter()
+        want_l, want_g = loss_and_grads(fn, cpu, cpu_b)
+        cpu_s = time.perf_counter() - t0
+        got_l, got_g = loss_and_grads(fn, card, card_b)
+        want32 = [None] * len(tree.leaves(want_g))
+        if prec == "MIXED":
+            fn32 = functools.partial(gnn.loss_fn, dataclasses.replace(cfg, precision=common.FP32))
+            want32 = tree.leaves(loss_and_grads(fn32, cpu, cpu_b)[1])
+        infer = make_gnn_infer_step(cfg)
+        r = {"loss_rel_err": check_close(got_l, want_l, tol, f"{label} loss"),
+             "grad_worst_rel_err": max(
+                 check_close(g, w, tol, f"{label} grad {n}", w32)
+                 for (n, g), w, w32 in zip(tree.flatten_with_paths(got_g), tree.leaves(want_g),
+                                           want32)),
+             "infer_rel_err": check_close(infer(card, card_b), infer(cpu, cpu_b), tol,
+                                          f"{label} infer"),
+             "cpu_s": cpu_s}
+        log(f"  {label} N={batch['node_feats'].shape[0]} E={batch['src'].shape[0]}: loss "
+            f"{float(want_l):.6f} (card {float(got_l):.6f}); " + ", ".join(
+                f"{k} {v:.3g}" for k, v in r.items()))
+        out[label] = r
+        del card, got_g
+    return out
+
+
+def run_gnn_path(dev, seed: int) -> dict:
+    """Phase 5's GNN step: ``check_gnn_small``, then graphcast at full
+    width on each GNN_SHAPES cell (``gnn_cell``), ogb_products at the cut
+    its probe picks. Device memory must come back to its level before."""
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.configs.registry import get_arch
+
+    spec = get_arch("graphcast")
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = {"small": check_gnn_small(dev, seed)}
+    out["small_s"] = time.perf_counter() - t0
+    log(f"  GNN card against CPU: {out['small_s']:.2f} s")
+    budget = LM_MEM_SHARE * torch.cuda.get_device_properties(dev).total_memory
+    for cell in GNN_SHAPES:
+        t0 = time.perf_counter()
+        cut = 1
+        if cell.name == "ogb_products":
+            cfg = spec.make_config(cell)
+            lo, hi = GNN_OGB_PROBE
+            peaks = [gnn_train_peak(dev, spec, cfg, gnn_cell_batch(cell.name, c, seed), seed)
+                     for c in (lo, hi)]
+            per_edge = max(peaks[1] - peaks[0], 1) / (cell.n_edges // hi - cell.n_edges // lo)
+            cut = lo
+            while cut > 1 and peaks[0] + per_edge * (cell.n_edges // (cut // 2)
+                                                     - cell.n_edges // lo) <= budget:
+                cut //= 2
+            out["ogb_probe"] = {"cuts": GNN_OGB_PROBE, "peak_gb": [p / 1e9 for p in peaks],
+                                "per_edge_kb": per_edge / 1e3, "cut": cut}
+            log(f"  ogb_products probe: peak {peaks[0] / 1e9:.3f} / {peaks[1] / 1e9:.3f} GB at "
+                f"cuts {lo} / {hi}, {per_edge / 1e3:.2f} KB an edge; cut {cut} fits "
+                f"{budget / 1e9:.1f} GB")
+        batch = gnn_cell_batch(cell.name, cut, seed)
+        data_s = time.perf_counter() - t0
+        label = f"graphcast {cell.name}" + (f" (cut {cut})" if cut > 1 else "")
+        out[cell.name] = dict(gnn_cell(dev, spec, cell.name, batch, seed, label), cut=cut,
+                              data_s=data_s)
+        del batch
+    after = torch.cuda.memory_allocated()
+    log(f"  GNN step: device memory {before} B before, {after} B after")
+    if after > before + (64 << 20):
+        raise SystemExit(f"GNN step: {after - before} B still allocated after the cells")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="corpus size (>= 200000 for a record)")
@@ -4162,11 +4751,26 @@ def main(argv=None) -> int:
     lm_out, lm_launches = drive(run_lm_path, (), dev, args.seed)
     lm_out["step_s"] = time.perf_counter() - t0
     log(f"  LM step: {lm_out['step_s']:.2f} s")
+    # LM training and the GNN: no kernel of the port lies on either (the
+    # reference computes them in plain jnp and jax.ops.segment_*)
+    log("[5] LM training: the five reduced configs card against CPU, then train_4k at full "
+        "width: " + ", ".join(f"{a} ({n or 'deepest that fits'} layers, B={b})"
+                              for a, n, b in LM_TRAIN_CELLS))
+    t0 = time.perf_counter()
+    lm_train_out, lm_train_launches = drive(run_lm_train_path, (), dev, args.seed)
+    lm_train_out["step_s"] = time.perf_counter() - t0
+    log(f"  LM train step: {lm_train_out['step_s']:.2f} s")
+    log("[5] GNN: graphcast card against CPU, then the four graph cells at full width")
+    t0 = time.perf_counter()
+    gnn_out, gnn_launches = drive(run_gnn_path, (), dev, args.seed)
+    gnn_out["step_s"] = time.perf_counter() - t0
+    log(f"  GNN step: {gnn_out['step_s']:.2f} s")
     train_launches = {k: fm_train_launches[k] + launch_train_launches[k]
                       + retrieval_train_launches[k] for k in wrappers}
     launches = {k: exact_launches[k] + serve_launches[k] + quant_launches[k] + part_launches[k]
                 + tier_launches[k] + shard_launches[k] + mut_launches[k] + recsys_launches[k]
-                + models_launches[k] + train_launches[k] + lm_launches[k] for k in wrappers}
+                + models_launches[k] + train_launches[k] + lm_launches[k]
+                + lm_train_launches[k] + gnn_launches[k] for k in wrappers}
     # one more build, profiled (no warm-up: the kernels ran in the first).
     # Last of all: after its many thousand launches the profiler drops the
     # events of later profiles.
@@ -4221,7 +4825,8 @@ def main(argv=None) -> int:
                                      "mutable": mut_out,
                                      "recsys": recsys_out, "recsys_cut_vocab": recsys_small,
                                      "recsys_models": models_out, "train": train_out,
-                                     "lm": lm_out,
+                                     "lm": lm_out, "lm_train": lm_train_out,
+                                     "gnn": gnn_out,
                                      "profiles": profiles, "small_input": small,
                                      "launches": {"exact": exact_launches,
                                                   "serve": serve_launches,
@@ -4235,7 +4840,9 @@ def main(argv=None) -> int:
                                                   "fm_train": fm_train_launches,
                                                   "fm_launch_train": launch_train_launches,
                                                   "train_retrieval": retrieval_train_launches,
-                                                  "lm": lm_launches},
+                                                  "lm": lm_launches,
+                                                  "lm_train": lm_train_launches,
+                                                  "gnn": gnn_launches},
                                      "gather_descent_block": kern["gather_auto"]["descent_block"],
                                      "gather_narrow_block": kern["gather_auto"]["narrow_block"],
                                      "fm_serve_p99": kern["fm_interaction"]["serve_p99"],

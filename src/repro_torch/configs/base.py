@@ -1,6 +1,6 @@
-"""Config substrate: ``ShapeCell`` and ``ArchSpec``, the LM shape table
-(``LM_SHAPES``, ``lm_shapes``) and the recsys shape table. The GNN shape
-table comes with its family (ROADMAP.md queue 1, item 16)."""
+"""Config substrate: ``ShapeCell`` and ``ArchSpec``, and the shape tables
+of the three families: LM (``LM_SHAPES``, ``lm_shapes``), GNN
+(``GNN_SHAPES``) and recsys (``RECSYS_SHAPES``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -51,6 +51,10 @@ class ArchSpec:
         raise KeyError(f"{self.arch_id}: unknown shape {name!r}")
 
 
+def _pad_to(n: int, mult: int) -> int:
+    return ((n + mult - 1) // mult) * mult
+
+
 LM_SHAPES = (
     ShapeCell(name="train_4k", kind="train", seq_len=4096, global_batch=256),
     ShapeCell(name="prefill_32k", kind="prefill", seq_len=32768, global_batch=32),
@@ -75,6 +79,23 @@ def lm_shapes(sliding_window: Optional[int]) -> tuple[ShapeCell, ...]:
         cells.append(c)
     return tuple(cells)
 
+
+GNN_SHAPES = (
+    # cora-like full batch (edges padded 10556 → 10752 = 512·21)
+    ShapeCell(name="full_graph_sm", kind="train", n_nodes=2708,
+              n_edges=_pad_to(10556, 512), d_feat=1433, d_out=7),
+    # reddit-like sampled training: seeds 1024, fanout 15×10 →
+    # nodes = 1024 + 15360 + 153600, edges = 15360 + 153600
+    ShapeCell(name="minibatch_lg", kind="train", n_nodes=1024 + 15360 + 153600,
+              n_edges=15360 + 153600, d_feat=602, d_out=41),
+    # ogbn-products-like full batch (nodes and edges padded to multiples of
+    # 512, the reference's mesh divisor)
+    ShapeCell(name="ogb_products", kind="train", n_nodes=_pad_to(2449029, 512),
+              n_edges=_pad_to(61859140, 512), d_feat=100, d_out=47),
+    # batched small molecules: 128 graphs × (30 nodes, 64 edges)
+    ShapeCell(name="molecule", kind="train", n_nodes=128 * 30,
+              n_edges=128 * 64, d_feat=32, d_out=1),
+)
 
 RECSYS_SHAPES = (
     ShapeCell(name="train_batch", kind="train", global_batch=65536),

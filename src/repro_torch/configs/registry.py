@@ -1,7 +1,9 @@
 """Architecture registry: ``get_arch(<id>)`` resolution.
 
-The five LM ids and the four recsys ids are ported. The reference's GNN id
-raises ``KeyError`` naming the ROADMAP.md item that ports it.
+Every architecture id of the reference is ported: the five LM ids, the GNN
+id (graphcast) and the four recsys ids. ``NOT_PORTED`` is empty; an id
+listed there would raise ``KeyError`` naming the ROADMAP.md item that ports
+it.
 """
 from __future__ import annotations
 
@@ -9,6 +11,7 @@ from repro_torch.configs import (
     bert4rec,
     dlrm_rm2,
     fm,
+    graphcast,
     kimi_k2_1t_a32b,
     mistral_large_123b,
     mixtral_8x7b,
@@ -26,6 +29,7 @@ ARCHS: dict[str, ArchSpec] = {
         phi3_mini_3_8b.SPEC,
         kimi_k2_1t_a32b.SPEC,
         mixtral_8x7b.SPEC,
+        graphcast.SPEC,
         dlrm_rm2.SPEC,
         xdeepfm.SPEC,
         bert4rec.SPEC,
@@ -34,7 +38,7 @@ ARCHS: dict[str, ArchSpec] = {
 }
 
 #: the reference's other architecture ids, with the item that ports each
-NOT_PORTED: dict[str, str] = {"graphcast": "ROADMAP.md queue 1, item 16 (the GNN model)"}
+NOT_PORTED: dict[str, str] = {}
 
 
 def get_arch(arch_id: str) -> ArchSpec:

@@ -1,6 +1,8 @@
 """Shared graph primitives: fixed-capacity adjacency tables, reverse-edge
 construction and the sorted-pool merge/dedup that stands in for the paper's
-insertion-sorted candidate lists.
+insertion-sorted candidate lists; and the GNN's message-passing primitives
+(``scatter_sum``, ``scatter_max``, ``scatter_mean``,
+``degree_normalized_adjacency_apply``, ``take_rows``).
 
 Tie order: ``jax.lax.top_k`` and JAX's sorts keep the lower index first
 among equal keys, ``torch.topk`` does not. Every ordering here is a stable
@@ -164,3 +166,70 @@ def merge_pools(
 def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Gather rows of ``table`` at ``ids`` (INVALID-safe: pad rows → row 0)."""
     return table[ids.clamp_min(0).long()]
+
+
+# ---------------------------------------------------------------------------
+# Message-passing primitives shared with models/gnn.py
+# ---------------------------------------------------------------------------
+
+
+def take_rows(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``x[ids]`` with ``jnp`` indexing's rules: a negative id counts from
+    the end, and an id still outside [0, n) is clamped into it."""
+    n = x.shape[0]
+    ids = torch.where(ids < 0, ids + n, ids).clamp(0, n - 1)
+    return x[ids.long()]
+
+
+def _segments(dst: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """Each edge's row among ``n_nodes`` + 1: its destination, or the spare
+    row ``n_nodes`` for an id outside [0, n_nodes) (``segment_sum`` drops
+    those, −1 included)."""
+    valid = (dst >= 0) & (dst < n_nodes)
+    return torch.where(valid, dst, n_nodes).long()
+
+
+def scatter_sum(messages: torch.Tensor, dst: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """Σ of per-edge messages (E, ...) into destination nodes (GNN
+    aggregation): (n_nodes, ...) in the messages' dtype. Ids outside
+    [0, n_nodes) are dropped. Each node's sum is formed in f32 and rounded
+    once to the messages' dtype (the reference on the CPU adds bf16
+    messages one at a time in bf16; see ROADMAP.md)."""
+    out = messages.new_zeros((n_nodes + 1, *messages.shape[1:]), dtype=torch.float32)
+    out = out.index_add(0, _segments(dst, n_nodes), messages.float())
+    return out[:n_nodes].to(messages.dtype)
+
+
+def scatter_max(messages: torch.Tensor, dst: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """Elementwise max of per-edge messages into destination nodes: a node
+    no message reaches is −inf (the lowest integer for integer messages),
+    as ``segment_max``; ids outside [0, n_nodes) are dropped. Tied maxima
+    share the gradient equally, as in the reference."""
+    dt = messages.dtype
+    lowest = float("-inf") if dt.is_floating_point else torch.iinfo(dt).min
+    out = messages.new_full((n_nodes + 1, *messages.shape[1:]), lowest)
+    out = out.index_reduce(0, _segments(dst, n_nodes), messages, "amax", include_self=True)
+    return out[:n_nodes]
+
+
+def segment_count(dst: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """(n_nodes,) f32 number of edges into each node (ids outside
+    [0, n_nodes) dropped)."""
+    ones = torch.ones(dst.shape[0], dtype=torch.float32, device=dst.device)
+    return scatter_sum(ones, dst, n_nodes)
+
+
+def scatter_mean(messages: torch.Tensor, dst: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """``scatter_sum`` over each node's in-degree (at least 1): a bf16 sum
+    over the f32 count promotes to f32, as in the reference."""
+    return scatter_sum(messages, dst, n_nodes) / segment_count(dst, n_nodes).clamp_min(1.0)[:, None]
+
+
+def degree_normalized_adjacency_apply(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                                      n_nodes: int) -> torch.Tensor:
+    """GCN-style Â·X via gather → scale → scatter (no sparse matrices):
+    each edge's ``x[src]`` times rsqrt(deg(src)·deg(dst)), degrees the
+    in-degrees clamped to 1, summed into ``dst``."""
+    inv_sqrt = torch.rsqrt(segment_count(dst, n_nodes).clamp_min(1.0))
+    msgs = take_rows(x, src) * (take_rows(inv_sqrt, src) * take_rows(inv_sqrt, dst))[:, None]
+    return scatter_sum(msgs, dst, n_nodes)

@@ -1,1 +1,2 @@
-"""Synthetic hybrid datasets (numpy; the same draws as the reference)."""
+"""Synthetic data, numpy only, with the reference's draws: hybrid datasets
+(``synthetic``) and graphs with a fanout sampler (``graph``)."""

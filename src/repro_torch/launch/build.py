@@ -13,7 +13,7 @@ two are mutually exclusive. The build runs on the CUDA card unless
 The reference's module of the same name also holds the cell builder of its
 LM, GNN and recsys cells (``build_cell``), JAX sharding and dry-run
 machinery; that part waits for the sharded and dry-run side (ROADMAP.md
-queue 1, item 16). The cells' FLOP counts are ``models.recsys.model_flops``
+queue 1, item 16.3). The cells' FLOP counts are ``models.recsys.model_flops``
 and ``models.transformer.model_flops``.
 
 Examples:

@@ -1,4 +1,3 @@
-"""Model families. The recsys family is ported (fm, dlrm-rm2, xdeepfm,
-bert4rec and the STABLE retrieval head), for serving and training; the LM
-family (``transformer.py``) for serving; the GNN family comes with its
-ROADMAP.md item."""
+"""Model families, all ported: recsys (fm, dlrm-rm2, xdeepfm, bert4rec and
+the STABLE retrieval head; ``recsys.py``), LM (``transformer.py``) and GNN
+(``gnn.py``), each for serving and training."""

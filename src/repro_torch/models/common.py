@@ -146,6 +146,16 @@ def tree_from_numpy(shapes: dict, tree: dict, dtype: torch.dtype, device, what: 
     return convert(shapes, tree, "")
 
 
+def unstack_layers(layers: dict, n: int) -> list[dict]:
+    """Stacked (L, ...) layer parameters, nested dicts, as ``n`` per-layer
+    dicts of views, each leaf unbound once: its gradient is one stack of
+    the L slices' gradients (an index per layer would add L zero-filled
+    gradients of the whole stack)."""
+    parts = {k: unstack_layers(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in layers.items()}
+    return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+
+
 def tree_bytes(tree) -> int:
     return int(sum(math.prod(t.shape) * t.element_size() for t in leaves(tree)))
 

@@ -22,12 +22,18 @@ rounding for rounding where the two frameworks allow:
     rolling one of ``min(max_len, window)`` rows for the SWA archs. Its
     length and slot stay on the device: a step never waits for the host.
 
+With ``cfg.remat`` set and grad enabled, each layer runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with
+``nothing_saveable``): the backward recomputes one layer's activations at a
+time, and no value changes. The stacked layer parameters are unbound once
+per forward, so a gradient reaches them as one stack of the L slices.
+
 Nothing here launches a hand-written kernel: the reference computes these
 layers in plain ``jnp``, not in Pallas. The sharding fields of the config
 (``act_*`` and ``moe_*_axis``) belong to the sharded side, which is not
-ported: a config that sets one raises. ``unroll_*`` and ``remat`` change no
-result here. Parameters are nested dicts of tensors; the reference's
-cross with ``params_from_numpy``.
+ported: a config that sets one raises. ``unroll_*`` change no result here.
+Parameters are nested dicts of tensors; the reference's cross with
+``params_from_numpy``.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import resolve_device
 from repro_torch.models import common
@@ -44,7 +51,7 @@ from repro_torch.models.common import MIXED, Precision
 
 Tensor = torch.Tensor
 
-_SHARDED = "ROADMAP.md queue 1, item 16 (the sharded and dry-run side)"
+_SHARDED = "ROADMAP.md queue 1, item 16.3 (the sharded and dry-run side)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,11 +217,6 @@ def model_flops(cfg: TransformerConfig, cell) -> float:
     tokens = cell.global_batch * (cell.seq_len if cell.kind != "decode" else 1)
     passes = 6.0 if cell.kind == "train" else 2.0
     return passes * cfg.active_param_count * tokens
-
-
-def _layer_params(layers: dict, i: int) -> dict:
-    """Layer ``i``'s parameters: views into the stacked ones."""
-    return {k: _layer_params(v, i) if isinstance(v, dict) else v[i] for k, v in layers.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -453,15 +455,28 @@ def _layer(cfg: TransformerConfig, x: Tensor, lp: dict, positions: Tensor,
     return x + y
 
 
+def _remat_layer(cfg: TransformerConfig, x: Tensor, lp: dict, positions: Tensor,
+                 once: list) -> Tensor:
+    """``_layer`` with the MoE ``stats`` that ``once`` holds for its first
+    call only: the backward's recompute must not record them again."""
+    return _layer(cfg, x, lp, positions, once.pop() if once else None)
+
+
 def _trunk(cfg: TransformerConfig, params: dict, tokens: Tensor,
            stats: Optional[dict]) -> Tensor:
     """tokens (B, S) → the last layer's output (B, S, d) in the compute
-    dtype."""
+    dtype. With ``cfg.remat`` and grad enabled each layer is checkpointed:
+    only its input is kept for the backward."""
     b, s = tokens.shape
     x = params["embed"][tokens.long()].to(cfg.precision.compute_dtype)
     positions = torch.arange(s, device=x.device).expand(b, s)
-    for i in range(cfg.n_layers):
-        x = _layer(cfg, x, _layer_params(params["layers"], i), positions, stats)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in common.unstack_layers(params["layers"], cfg.n_layers):
+        if remat:
+            x = checkpoint(_remat_layer, cfg, x, lp, positions, [stats],
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _layer(cfg, x, lp, positions, stats)
     return x
 
 
@@ -561,8 +576,7 @@ def decode_step(cfg: TransformerConfig, params: dict, cache: dict, tokens: Tenso
 
     x = params["embed"][tokens[:, 0].long()].to(cdt)  # (B, d)
     positions = pos.expand(b, 1)
-    for i in range(cfg.n_layers):
-        lp = _layer_params(params["layers"], i)
+    for i, lp in enumerate(common.unstack_layers(params["layers"], cfg.n_layers)):
         h = common.rms_norm(x, lp["ln1"])
         q = (h @ lp["attn"]["wq"].to(cdt)).view(b, 1, kv * g, dh)
         knew = (h @ lp["attn"]["wk"].to(cdt)).view(b, 1, kv, dh)

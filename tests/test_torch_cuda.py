@@ -1067,7 +1067,7 @@ def _lm(arch, prec, dev):
     from repro_torch.models import transformer as tfm
 
     def to(tree):
-        return {k: to(v) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+        return {k: to(v) if isinstance(v, dict) else v.to(dev, copy=True) for k, v in tree.items()}
 
     cfg = dataclasses.replace(get_arch(arch).make_reduced(), precision=getattr(common, prec))
     cpu = tfm.init_params(cfg, seed=2, device="cpu")
@@ -1163,3 +1163,218 @@ def test_lm_decode_and_moe_never_wait_for_the_host(cuda_dev, arch):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(cache["len"]) == 4
+
+
+# ---------------------------------------------------------------------------
+# LM training and the GNN (no kernel of the port lies on either: plain
+# PyTorch on the card, held to the CPU)
+# ---------------------------------------------------------------------------
+
+
+def _tree_close(got, want, tol, want32=None):
+    """Every leaf within tol·max|cpu|; with ``want32`` (the CPU's f32
+    gradients) a bf16 leaf past it passes where the CPU's own bf16 leaf
+    lies further than that from the f32 one and the card's at most twice
+    as far."""
+    from repro_torch.core import tree
+
+    w32s = tree.leaves(want32) if want32 is not None else [None] * len(tree.leaves(want))
+    for (name, g), w, w32 in zip(tree.flatten_with_paths(got), tree.leaves(want), w32s):
+        g, w = g.float().cpu(), w.float()
+        scale = tol * float(w.abs().max())
+        err = float((g - w).abs().max()) if w.numel() else 0.0
+        if err <= scale:
+            continue
+        assert w32 is not None, f"{name}: max|Δ| {err:.3e} > {scale:.3e}"
+        ref_off = float((w - w32).abs().max())
+        assert ref_off > scale and float((g - w32).abs().max()) <= 2.0 * ref_off, name
+
+
+def _lm_train_batch(cfg, spec, prec):
+    """(batch, micro_batches): (8, 16) tokens with the spec's micro_batches;
+    a MoE config under MIXED takes the 2-token sequences (the spec's
+    micro_batches of them from each of 8 seeds) no router near-tie
+    unsettles on the CPU, a micro-batch each (at least half of them)."""
+    from repro_torch.models import transformer as tfm
+
+    if not (cfg.moe and prec == "MIXED"):
+        rng = np.random.default_rng(5)
+        return ({k: torch.from_numpy(rng.integers(0, cfg.vocab, (8, 16), dtype=np.int32))
+                 for k in ("tokens", "labels")}, spec.micro_batches)
+    params = tfm.init_params(cfg, seed=2, device="cpu")
+    held, total = [], 0
+    for seed in range(8):
+        rng = np.random.default_rng(100 + seed)
+        t, lab = (torch.from_numpy(rng.integers(0, cfg.vocab, (spec.micro_batches, 2),
+                                                dtype=np.int32)) for _ in range(2))
+        for j in range(spec.micro_batches):
+            total += 1
+            stats = {}
+            with torch.no_grad():
+                tfm.forward(cfg, params, t[j:j + 1], stats)
+            if not bool(tfm.unsettled_tokens(cfg, stats["router_logits"], LM_EPS).any()):
+                held.append((t[j:j + 1], lab[j:j + 1]))
+    assert len(held) >= total / 2
+    return ({"tokens": torch.cat([t for t, _ in held]),
+             "labels": torch.cat([x for _, x in held])}, len(held))
+
+
+@pytest.mark.parametrize("prec", ["FP32", "MIXED"])
+@pytest.mark.parametrize("arch", LM_IDS)
+def test_lm_train_step_on_card_matches_cpu(cuda_dev, arch, prec):
+    """One micro-batched step's loss, gradient norm and accumulated
+    gradients (the spec's micro_batches; MoE under MIXED on the settled
+    sequences) on the card against the CPU, from the same parameters;
+    then make_lm_train_step's updated parameters within 2·lr + 1e-6."""
+    import functools
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import tree
+    from repro_torch.models import common
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.optim import _global_norm, init_state
+    from repro_torch.train.step import _split_leading, accumulated_grads, make_lm_train_step
+
+    spec = get_arch(arch)
+    cfg, cpu, card = _lm(arch, prec, cuda_dev)
+    batch, micro = _lm_train_batch(cfg, spec, prec)
+    card_batch = {k: v.to(cuda_dev) for k, v in batch.items()}
+    fn = functools.partial(tfm.loss_fn, cfg)
+    want_l, want_g = accumulated_grads(fn, cpu, batch, micro, _split_leading)
+    got_l, got_g = accumulated_grads(fn, card, card_batch, micro, _split_leading)
+    want32 = None
+    if prec == "MIXED":
+        fn32 = functools.partial(tfm.loss_fn, dataclasses.replace(cfg, precision=common.FP32))
+        want32 = accumulated_grads(fn32, cpu, batch, micro, _split_leading)[1]
+    tol = LM_TOL[prec]
+    _lm_close(got_l[None], want_l[None], tol)
+    _lm_close(_global_norm(got_g)[None], _global_norm(want_g)[None], tol)
+    _tree_close(got_g, want_g, tol, want32)
+    step = make_lm_train_step(cfg, spec.optim, micro)
+    cpu, _, mc = step(cpu, init_state(spec.optim, cpu), batch)
+    card, _, mg = step(card, init_state(spec.optim, card), card_batch)
+    _lm_close(mg["loss"][None], mc["loss"][None], tol)
+    for a, b in zip(tree.leaves(card), tree.leaves(cpu)):
+        assert float((a.cpu().float() - b.float()).abs().max()) <= 2 * spec.optim.lr + 1e-6
+
+
+@pytest.mark.parametrize("arch", LM_IDS)
+def test_lm_remat_changes_no_gradient_on_card(cuda_dev, arch):
+    """On the card, the gradients with every layer checkpointed equal those
+    without, bit for bit (MIXED, one (2, 16) micro-batch)."""
+    import functools
+
+    from repro_torch.core import tree
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.step import loss_and_grads
+
+    cfg, _, card = _lm(arch, "MIXED", cuda_dev)
+    rng = np.random.default_rng(6)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16), dtype=np.int32)).to(cuda_dev)
+             for k in ("tokens", "labels")}
+    on = loss_and_grads(functools.partial(tfm.loss_fn, cfg), card, batch)
+    off = loss_and_grads(functools.partial(tfm.loss_fn, dataclasses.replace(cfg, remat=False)),
+                         card, batch)
+    assert torch.equal(on[0], off[0])
+    for (name, a), b in zip(tree.flatten_with_paths(on[1]), tree.leaves(off[1])):
+        assert torch.equal(a, b), name
+
+
+def _gnn_batch(cfg, seed=3, n=64, e=256):
+    rng = np.random.default_rng(seed)
+    dst = np.concatenate([np.arange(n), rng.integers(0, n, e)]).astype(np.int32)
+    out = {"node_feats": rng.normal(size=(n, cfg.d_in)).astype(np.float32),
+           "src": rng.integers(0, n, dst.size).astype(np.int32), "dst": dst,
+           "edge_mask": rng.random(dst.size) < 0.8,
+           "targets": rng.normal(size=(n, cfg.d_out)).astype(np.float32),
+           "node_mask": (rng.random(n) < 0.7).astype(np.float32)}
+    return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("aggregator", ["sum", "mean", "max"])
+@pytest.mark.parametrize("prec", ["FP32", "MIXED"])
+def test_gnn_steps_on_card_match_cpu(cuda_dev, prec, aggregator):
+    """graphcast-smoke on a 64-node graph (mean in-degree 5, masks): the
+    loss and gradients, make_gnn_train_step's loss and updated parameters
+    (within 2·lr + 1e-6) and make_gnn_infer_step's output on the card
+    against the CPU."""
+    import functools
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import tree
+    from repro_torch.models import common, gnn
+    from repro_torch.train.optim import init_state
+    from repro_torch.train.step import loss_and_grads, make_gnn_infer_step, make_gnn_train_step
+
+    spec = get_arch("graphcast")
+    cfg = dataclasses.replace(spec.make_reduced(), precision=getattr(common, prec),
+                              aggregator=aggregator)
+    cpu = gnn.init_params(cfg, seed=4, device="cpu")
+    card = {k: {n: v.to(cuda_dev, copy=True) for n, v in d.items()} for k, d in cpu.items()}
+    batch = _gnn_batch(cfg)
+    card_b = {k: v.to(cuda_dev) for k, v in batch.items()}
+    tol = LM_TOL[prec]
+    fn = functools.partial(gnn.loss_fn, cfg)
+    want_l, want_g = loss_and_grads(fn, cpu, batch)
+    got_l, got_g = loss_and_grads(fn, card, card_b)
+    want32 = None
+    if prec == "MIXED":
+        fn32 = functools.partial(gnn.loss_fn, dataclasses.replace(cfg, precision=common.FP32))
+        want32 = loss_and_grads(fn32, cpu, batch)[1]
+    _lm_close(got_l[None], want_l[None], tol)
+    _tree_close(got_g, want_g, tol, want32)
+    infer = make_gnn_infer_step(cfg)
+    _lm_close(infer(card, card_b), infer(cpu, batch), tol)
+    step = make_gnn_train_step(cfg, spec.optim)
+    cpu, _, mc = step(cpu, init_state(spec.optim, cpu), batch)
+    card, _, mg = step(card, init_state(spec.optim, card), card_b)
+    _lm_close(mg["loss"][None], mc["loss"][None], tol)
+    for a, b in zip(tree.leaves(card), tree.leaves(cpu)):
+        assert float((a.cpu() - b).abs().max()) <= 2 * spec.optim.lr + 1e-6
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op", ["scatter_sum", "scatter_max", "scatter_mean",
+                                "degree_normalized_adjacency_apply"])
+def test_graph_ops_on_card_match_cpu(cuda_dev, op, dtype):
+    """The four graph ops on the card against the CPU, with dropped ids
+    (−1, n, n + 3), empty segments and tied maxima: the max bit for bit
+    (no sum), the others within 1e-6·max (f32, sums in another order) or
+    one bf16 step (a sum in f32 rounded once); the gradients alike, but a
+    bf16 input's gradient through the gather of
+    ``degree_normalized_adjacency_apply`` within 0.03·max (the gather's
+    backward adds in bf16, one term at a time on the CPU; 2 steps apart at
+    ≈ 12 terms a row)."""
+    from repro_torch.core import graph_ops
+
+    n, e = 16, 200
+    rng = np.random.default_rng(7)
+    m = torch.from_numpy((rng.integers(-8, 9, (e, 8)) * 0.5).astype(np.float32)).to(
+        getattr(torch, dtype))
+    dst = torch.from_numpy(np.concatenate([rng.integers(0, n - 2, e - 4), [-1, n, n + 3, -1]])
+                           .astype(np.int32))
+    src = torch.from_numpy(rng.integers(0, n, e).astype(np.int32))
+    up = torch.from_numpy(rng.normal(size=(n, 8)).astype(np.float32))
+    if op == "degree_normalized_adjacency_apply":
+        dst = dst.clamp(0, n - 1)
+
+    def run(dev):
+        x = m.to(dev).requires_grad_(True)
+        fn = getattr(graph_ops, op)
+        y = fn(x[:n], src.to(dev), dst.to(dev), n) if op.startswith("degree") else \
+            fn(x, dst.to(dev), n)
+        yf = y.float()
+        (g,) = torch.autograd.grad((torch.where(torch.isfinite(yf), yf, 0.0) * up.to(dev)).sum(),
+                                   x)
+        return y.detach().cpu(), g.cpu()
+
+    (y_card, g_card), (y_cpu, g_cpu) = run(cuda_dev), run("cpu")
+    assert y_card.dtype == y_cpu.dtype
+    if op == "scatter_max":
+        assert torch.equal(y_card, y_cpu) and torch.equal(g_card, g_cpu)
+        return
+    tol = 1e-6 if dtype == "float32" else 2.0**-8
+    grad_tol = 0.03 if dtype == "bfloat16" and op.startswith("degree") else tol
+    for got, want, t in ((y_card, y_cpu, tol), (g_card, g_cpu, grad_tol)):
+        assert float((got.float() - want.float()).abs().max()) <= t * float(
+            want.float().abs().max())

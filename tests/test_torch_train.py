@@ -580,9 +580,13 @@ def test_launch_train_runs_on_cpu(arch, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "graphcast"])
-def test_launch_train_rejects_unported_families(arch):
-    with pytest.raises(KeyError, match="item 16"):
-        tlaunch.main(["--arch", arch, "--device", "cpu"])
+def test_launch_train_runs_lm_and_gnn(arch, capsys):
+    """The LM and GNN families train through ``main`` on the CPU (their
+    branches: the family's parameters, step and batches)."""
+    res = tlaunch.main(["--arch", arch, "--steps", "3", "--device", "cpu"])
+    assert len(res.losses) == 3 and np.isfinite(res.losses).all()
+    assert res.checkpoints_written == 0 and res.resumed_from is None
+    assert f"[done] {arch}: loss" in capsys.readouterr().out
 
 
 def test_train_retrieval_example_on_cpu(capsys):
