@@ -191,12 +191,27 @@ Phases:
      full_graph_sm, minibatch_lg (a fanout sample of a Reddit-sized random
      graph, edges cut by 8), ogb_products (nodes and edges cut by the
      smallest power of two that fits, from two probes) and molecule: train
-     and infer ms, edges/s, model TFLOP/s, peak, one profiled step. Last
+     and infer ms, edges/s, model TFLOP/s, peak, one profiled step. Then
+     the sharded and dry-run step: the dry run (launch/dryrun.py, meta
+     tensors) over every cell on the single production mesh, and on the
+     pod mesh too if both fit in 90 s, one line a cell; fm train_batch,
+     xdeepfm retrieval_cand, dlrm-rm2 serve_bulk, graphcast minibatch_lg
+     and mixtral-8x7b decode_32k (1 layer) built with build_cell on a
+     (1, 1) mesh, their arguments drawn on the card requesting exactly the
+     dry run's argument bytes, one step's FLOPs under FlopCounterMode equal
+     to the meta count and its outputs finite, a second step timed and its
+     peak printed beside the dry run's per_device_total; both ring matmuls
+     at (8,192 x 8,192) @ (8,192 x 3,072) f32 over 4 shards on the card,
+     bit for bit the plain ring-order sums of their partials, within 1e-5
+     of one matmul, timed; the ring aggregate over ogb_products cut by 8
+     (d = 512, 15.8 GB of f32 messages) within 1e-5 of scatter_sum, its
+     peak above the messages beside one whole accumulator; the LM and GNN
+     sharding fields changing no value, bit for bit. Last
      of all, one more Engine.build of phase 4's data under the profiler
   6. a JSON line of every kernel's launches in phases 4 and 5 (the exact,
      serve, quantized, partitioned, tiered, sharded, mutable, recsys,
-     recsys-model, training, LM, LM-training and GNN paths, each counted
-     from 0; a kernel of
+     recsys-model, training, LM, LM-training, GNN and sharded/dry-run
+     paths, each counted from 0; a kernel of
      a path that the path never launched fails the run), error and times
 
 At N = 1M this dataset's graph recall is low (the AUTO-built HELP graph
@@ -368,6 +383,16 @@ GNN_REDDIT_EDGE_CUT, GNN_OGB_PROBE, GNN_STEPS = 8, (512, 256), 5
 #: (ReLU gates flip), which check_gnn_small measures on the CPU at both
 #: depths (GNN_PERTURB)
 GNN_SMALL, GNN_FULL_CHECK_LAYERS, GNN_PERTURB = (64, 256), 2, 1e-7
+#: the sharded and dry-run step: the cells held against the card (arch,
+#: shape, overrides), the dry run's time under which it also runs the pod
+#: mesh (both meshes take about twice the single one), the ring matmul at
+#: phi3's FFN down-projection width (x (B, K) @ w (K, N), K split over the
+#: shards), the aggregate's cut of ogb_products and width (graphcast's d)
+DRY_CELLS = (("fm", "train_batch", None), ("xdeepfm", "retrieval_cand", None),
+             ("dlrm-rm2", "serve_bulk", None), ("graphcast", "minibatch_lg", None),
+             ("mixtral-8x7b", "decode_32k", {"n_layers": 1}))
+DRY_BOTH_S, RING_SHARDS, RING_SHAPE = 90.0, 4, (8192, 8192, 3072)
+AGG_CUT, AGG_D, RING_RTOL = 8, 512, 1e-5
 #: fm_interaction's gradient, card against CPU, at B x F x D besides the
 #: training shape
 FM_GRAD_SHAPES = tuple((b, f, d) for b in (1, 255, 257) for f in (1, 39) for d in (1, 10, 64))
@@ -4538,6 +4563,330 @@ def run_gnn_path(dev, seed: int) -> dict:
     return out
 
 
+def run_dryrun_cells() -> dict:
+    """The dry run over ``all_cells()`` in process (meta tensors, nothing on
+    the card): the single mesh, then the pod mesh if the single one took
+    under half of DRY_BOTH_S. One line a cell; any cell not ok fails.
+    Returns each cell's [argument bytes, temp bytes, per_device_total,
+    model_flops, counted FLOPs, method] and each mesh's seconds."""
+    from repro_torch.configs.registry import all_cells
+    from repro_torch.launch import dryrun
+
+    out = {"meshes": []}
+    for mesh_kind in ("single", "pod"):
+        if mesh_kind == "pod" and 2 * out["single_s"] > DRY_BOTH_S:
+            log(f"  pod mesh left out: both meshes would take over {DRY_BOTH_S:.0f} s")
+            break
+        t0 = time.perf_counter()
+        for arch, shape in all_cells():
+            res = dryrun.run_cell(arch, shape, mesh_kind)
+            if not res["ok"] or "error" in res.get("corrected", {}):
+                raise SystemExit(f"dry run {arch} × {shape} × {mesh_kind}: {res}")
+            log(f"  dry run {arch} × {shape} × {mesh_kind}: {dryrun.summary(res)}")
+            if not res.get("skipped"):
+                mem = res["memory"]
+                out[f"{arch}|{shape}|{mesh_kind}"] = [
+                    mem["argument_bytes"], mem["temp_bytes"], mem["per_device_total"],
+                    res["meta"]["model_flops"], res["cost"]["flops"], res["cost"]["method"]]
+        out[f"{mesh_kind}_s"] = time.perf_counter() - t0
+        out["meshes"].append(mesh_kind)
+        log(f"  dry run on the {mesh_kind} mesh: {out[f'{mesh_kind}_s']:.2f} s")
+    return out
+
+
+def dry_materialize(dev, spec, cell, build, overrides, seed: int) -> tuple:
+    """A cell's arguments on the card from ``seed``: the port's initialisers
+    (parameters, optimizer state, the KV cache), this script's recsys batch
+    makers and a random graph of the GNN cell's sizes; shapes and dtypes
+    held to the build's meta arguments."""
+    from repro_torch.core import tree as tree_mod
+    from repro_torch.models import gnn, recsys, transformer
+    from repro_torch.models.common import Precision
+    from repro_torch.train.optim import init_state
+
+    rng = np.random.default_rng(seed)
+    if spec.family == "lm":  # the decode cell: bf16 serving parameters
+        cfg = dataclasses.replace(spec.make_config(), **(overrides or {}),
+                                  precision=Precision(param_dtype=torch.bfloat16))
+        params = transformer.init_params(cfg, seed, dev)
+        tokens = rng.integers(0, cfg.vocab, (cell.global_batch, 1), dtype=np.int32)
+        args = (params, transformer.init_cache(cfg, cell.global_batch, cell.seq_len, device=dev),
+                {"tokens": torch.from_numpy(tokens).to(dev)})
+    elif spec.family == "gnn":
+        cfg = spec.make_config(cell)
+        params = gnn.init_params(cfg, seed, dev)
+        n, e = cell.n_nodes, cell.n_edges  # random edges (minibatch_lg has fewer than nodes)
+        g = {"node_feats": rng.normal(size=(n, cell.d_feat)).astype(np.float32),
+             "src": rng.integers(0, n, e, dtype=np.int32),
+             "dst": rng.integers(0, n, e, dtype=np.int32), "edge_mask": rng.random(e) < 0.8,
+             "targets": rng.normal(size=(n, cell.d_out)).astype(np.float32),
+             "node_mask": (rng.random(n) < 0.7).astype(np.float32)}
+        args = (params, init_state(spec.optim, params),
+                {k: torch.from_numpy(v).to(dev) for k, v in g.items()})
+    else:
+        cfg = spec.make_config()
+        params = recsys.init_params(cfg, seed, dev)
+        if cell.kind == "train":
+            args = (params, init_state(spec.optim, params),
+                    train_batch_fn(spec, cfg, cell.global_batch, dev)(0))
+        else:
+            batch = recsys_batch(rng, cfg, cell.global_batch, dev)
+            if cell.kind == "retrieval":
+                batch |= make_items(dev, cell.n_candidates, cfg, seed)
+            else:
+                del batch["query_attrs"]
+            args = (params, batch)
+    got = [(p, tuple(t.shape), t.dtype) for p, t in tree_mod.flatten_with_paths(args)]
+    want = [(p, tuple(t.shape), t.dtype) for p, t in
+            tree_mod.flatten_with_paths(build.abstract_args)]
+    if got != want:
+        bad = [(a, b) for a, b in zip(got, want) if a != b] or (len(got), len(want))
+        raise SystemExit(f"{spec.arch_id} {cell.name}: materialised arguments {bad}")
+    return args
+
+
+def dry_cell_on_card(dev, arch: str, shape: str, overrides, seed: int) -> dict:
+    """One cell built on a (1, 1) LocalMesh: its arguments materialised on
+    the card hold the dry run's argument_bytes (the allocator's requested
+    bytes exactly; its blocks round each leaf up to 512 B, and a leaf over
+    1 MiB may take up to 1 MiB more where less would be left of a block);
+    one step under FlopCounterMode counts what the meta count counts, and
+    its outputs are finite; a second step is timed, its peak printed beside
+    the dry run's per_device_total."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import tree as tree_mod
+    from repro_torch.distributed.sharding import sharded_bytes
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.build import build_cell
+    from repro_torch.launch.mesh import make_local_mesh
+
+    spec = get_arch(arch)
+    cell = spec.cell(shape)
+    mesh = make_local_mesh(1, 1)
+    build = build_cell(spec, cell, mesh, overrides)
+    arg_bytes = sharded_bytes(mesh, build.abstract_args, build.in_specs)
+    mem = dryrun.memory_analysis(spec, cell, mesh, build, overrides)
+    meta_flops = dryrun.count_step(build)["flops"]
+    leaves = tree_mod.leaves(build.abstract_args)
+    nbytes = [t.numel() * t.element_size() for t in leaves]
+    rounded = sum(-(-n // 512) * 512 for n in nbytes)
+    slack = sum(1 << 20 for n in nbytes if n > 1 << 20)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    base_req = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    args = dry_materialize(dev, spec, cell, build, overrides, seed)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    requested = torch.cuda.memory_stats()["requested_bytes.all.current"] - base_req
+    label = f"{arch} {shape}" + (f" {overrides}" if overrides else "")
+    if not (requested == arg_bytes == mem["argument_bytes"] == sum(nbytes)
+            and rounded <= held <= rounded + slack):
+        raise SystemExit(f"{label}: argument bytes on the card {requested} requested, {held} "
+                         f"held (rounded {rounded} + up to {slack}); dry run {arg_bytes}")
+    with FlopCounterMode(display=False) as fc:
+        out = build.step(*args)
+    torch.cuda.synchronize()
+    card_flops = fc.get_total_flops()
+    if card_flops != meta_flops:
+        raise SystemExit(f"{label}: {card_flops} FLOPs counted on the card, {meta_flops} on meta")
+    bad = [p for p, t in tree_mod.flatten_with_paths(out)
+           if t.dtype.is_floating_point and not bool(torch.isfinite(t).all())]
+    if bad:
+        raise SystemExit(f"{label}: non-finite outputs {bad}")
+    del out
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = build.step(*args)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    row = {"argument_bytes": arg_bytes, "requested_bytes": requested, "held_bytes": held,
+           "flops": card_flops, "step_ms": step_ms, "peak_bytes": peak,
+           "per_device_total": mem["per_device_total"], "temp_bytes": mem["temp_bytes"],
+           "peak_over_estimate": peak / mem["per_device_total"]}
+    log(f"  {label} on the card: arguments {arg_bytes / 1e9:.4f} GB (requested {requested} B = "
+        f"the dry run's, held {held} B), {card_flops / 1e12:.4f} TFLOP counted on the card "
+        f"= meta; step {step_ms:.2f} ms, peak {peak / 1e9:.3f} GB against per_device_total "
+        f"{mem['per_device_total'] / 1e9:.3f} GB (temp estimate {mem['temp_bytes'] / 1e9:.3f} "
+        f"GB): {row['peak_over_estimate']:.3f}")
+    del out, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def plain_ring_sum(parts: list, i: int):
+    """((p_{i+1} + p_{i+2}) + …) + p_i: shard i's order on the ring."""
+    acc = parts[(i + 1) % len(parts)]
+    for s in range(2, len(parts) + 1):
+        acc = acc + parts[(i + s) % len(parts)]
+    return acc
+
+
+def check_ring_matmuls(dev, seed: int) -> dict:
+    """Both ring matmuls on a (data 1, model RING_SHARDS) mesh on the card
+    at RING_SHAPE in f32: each shard's result equal bit for bit to the
+    plain sum of the same partials in ring order, and within RING_RTOL of
+    one torch.matmul; all three timed."""
+    from repro_torch.distributed.collective_matmul import (
+        ring_allreduce_matmul, ring_reduce_scatter_matmul,
+    )
+    from repro_torch.distributed.sharding import NamedSharding, P
+    from repro_torch.launch.mesh import make_local_mesh
+
+    b, k, n = RING_SHAPE
+    mesh = make_local_mesh(1, RING_SHARDS)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, k), generator=g, device=dev)
+    w = torch.randn((k, n), generator=g, device=dev).div_(math.sqrt(k))
+    xs = NamedSharding(mesh, P(None, "model")).split(x)
+    ws = NamedSharding(mesh, P("model", None)).split(w)
+    ar = ring_allreduce_matmul(mesh, xs, ws)
+    rs = ring_reduce_scatter_matmul(mesh, xs, ws)
+    partials = [torch.matmul(a, c) for a, c in zip(xs, ws)]
+    chunk = b // RING_SHARDS
+    for i in range(RING_SHARDS):
+        if not torch.equal(ar[i], plain_ring_sum(partials, i)):
+            raise SystemExit(f"ring_allreduce_matmul shard {i}: not the plain ring-order sum")
+        if not torch.equal(rs[i], plain_ring_sum([p[i * chunk:(i + 1) * chunk]
+                                                  for p in partials], i)):
+            raise SystemExit(f"ring_reduce_scatter_matmul shard {i}: not the plain sum")
+    ref = torch.matmul(x, w)
+    scale = float(ref.abs().max())
+    err = max(max(float((a - ref).abs().max()) for a in ar),
+              float((torch.cat(rs) - ref).abs().max())) / scale
+    if err > RING_RTOL:
+        raise SystemExit(f"ring matmuls: {err:.3e}·max|ref| from torch.matmul")
+    del ar, rs, partials
+    out = {"shape": list(RING_SHAPE), "shards": RING_SHARDS, "rel_err": err,
+           "allreduce_ms": cuda_ms(lambda: ring_allreduce_matmul(mesh, xs, ws), reps=5),
+           "reduce_scatter_ms": cuda_ms(lambda: ring_reduce_scatter_matmul(mesh, xs, ws), reps=5),
+           "matmul_ms": cuda_ms(lambda: torch.matmul(x, w), reps=5)}
+    log(f"  ring matmuls x {b}x{k} @ w {k}x{n} f32 over {RING_SHARDS} shards on the card: bit "
+        f"for bit the plain ring-order sums, {err:.3e}·max|ref| from one matmul; allreduce "
+        f"{out['allreduce_ms']:.3f} ms, reduce-scatter {out['reduce_scatter_ms']:.3f} ms, "
+        f"torch.matmul {out['matmul_ms']:.3f} ms")
+    return out
+
+
+def check_ring_aggregate(dev, seed: int) -> dict:
+    """``ring_partitioned_aggregate`` on a (1, RING_SHARDS) mesh on the card
+    over ogb_products' graph cut by AGG_CUT with AGG_D-wide f32 messages,
+    within RING_RTOL of ``scatter_sum`` over every edge; the peak above
+    the messages beside one whole (N, d) f32 accumulator."""
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.core import graph_ops
+    from repro_torch.distributed.gnn_aggregate import ring_partitioned_aggregate
+    from repro_torch.distributed.sharding import NamedSharding, P
+    from repro_torch.launch.mesh import make_local_mesh
+
+    cell = {c.name: c for c in GNN_SHAPES}["ogb_products"]
+    n = cell.n_nodes // AGG_CUT
+    dst = torch.from_numpy(gnn_cell_batch("ogb_products", AGG_CUT, seed)["dst"]).to(dev)
+    e = dst.numel()
+    mesh = make_local_mesh(1, RING_SHARDS)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    msgs = torch.randn((e, AGG_D), generator=g, device=dev)
+    m_parts = NamedSharding(mesh, P("model", None)).split(msgs)
+    d_parts = NamedSharding(mesh, P("model")).split(dst)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = ring_partitioned_aggregate(mesh, m_parts, d_parts, n)
+    torch.cuda.synchronize()
+    ring_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    want = graph_ops.scatter_sum(msgs, dst, n)
+    torch.cuda.synchronize()
+    full_ms = (time.perf_counter() - t0) * 1e3
+    err = float((torch.cat(got) - want).abs().max()) / float(want.abs().max())
+    if err > RING_RTOL:
+        raise SystemExit(f"ring_partitioned_aggregate: {err:.3e}·max|want| from scatter_sum")
+    whole = n * AGG_D * 4
+    out = {"nodes": n, "edges": e, "d": AGG_D, "messages_gb": msgs.numel() * 4 / 1e9,
+           "rel_err": err, "ring_ms": ring_ms, "scatter_sum_ms": full_ms,
+           "peak_above_messages_gb": peak / 1e9, "whole_accumulator_gb": whole / 1e9}
+    log(f"  ring aggregate over ogb_products cut by {AGG_CUT} ({n} nodes, {e} edges, d = "
+        f"{AGG_D}, {out['messages_gb']:.2f} GB of f32 messages) on {RING_SHARDS} shards: "
+        f"{err:.3e}·max|want| from scatter_sum; {ring_ms:.2f} ms (scatter_sum {full_ms:.2f} ms); "
+        f"peak above the messages {peak / 1e9:.3f} GB, a whole (N, d) f32 accumulator "
+        f"{whole / 1e9:.3f} GB")
+    del msgs, m_parts, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_sharding_fields(dev, seed: int) -> dict:
+    """phi3 and mixtral at their reduced configs and graphcast-smoke: the
+    forward with the sharding fields build_cell sets on the single
+    production mesh equals the forward without, bit for bit on the card
+    (the GNN's under deterministic algorithms: its scatter adds otherwise
+    land in any order)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import gnn, transformer
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lm_fields = {
+        "phi3-mini-3.8b": dict(act_dp_axes=("data",), act_seq_axis="model"),
+        "mixtral-8x7b": dict(act_dp_axes=("data",), act_seq_axis="model", moe_expert_axis=None,
+                             moe_capacity_axes=("data",), moe_ff_axis="model"),
+    }
+    for arch, fields in lm_fields.items():
+        cfg = get_arch(arch).make_reduced()
+        params = transformer.init_params(cfg, seed, dev)
+        tokens = torch.randint(0, cfg.vocab, (2, 96), generator=g, device=dev, dtype=torch.int32)
+        with torch.no_grad():
+            a = transformer.forward(dataclasses.replace(cfg, **fields), params, tokens)
+            b = transformer.forward(cfg, params, tokens)
+        if not torch.equal(a, b):
+            raise SystemExit(f"{arch} reduced: the sharding fields changed the forward")
+    cfg = get_arch("graphcast").make_reduced()
+    params = gnn.init_params(cfg, seed, dev)
+    feats = torch.randn((64, cfg.d_in), generator=g, device=dev)
+    src, dst = (torch.randint(0, 64, (256,), generator=g, device=dev, dtype=torch.int32)
+                for _ in range(2))
+    sharded = dataclasses.replace(cfg, edge_shard_axes=("data", "model"),
+                                  node_shard_axes=("data", "model"))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.no_grad():
+            a, b = (gnn.forward(c, params, feats, src, dst) for c in (sharded, cfg))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if not torch.equal(a, b):
+        raise SystemExit("graphcast-smoke: the sharding fields changed the forward")
+    log("  sharding fields: phi3 and mixtral reduced, graphcast-smoke forward equal with and "
+        "without them, bit for bit on the card")
+    return {"equal": ["phi3-mini-3.8b", "mixtral-8x7b", "graphcast-smoke"]}
+
+
+def run_sharded_dryrun_path(dev, seed: int) -> dict:
+    """Phase 5's sharded and dry-run step: the dry run over every cell
+    (``run_dryrun_cells``), the DRY_CELLS against the card
+    (``dry_cell_on_card``), the ring functions (``check_ring_matmuls``,
+    ``check_ring_aggregate``) and the sharding fields
+    (``check_sharding_fields``)."""
+    t0 = time.perf_counter()
+    out = {"dryrun": run_dryrun_cells()}
+    out["cells"] = {}
+    for arch, shape, overrides in DRY_CELLS:
+        out["cells"][f"{arch}|{shape}"] = dry_cell_on_card(dev, arch, shape, overrides, seed)
+    out["ring_matmul"] = check_ring_matmuls(dev, seed)
+    out["ring_aggregate"] = check_ring_aggregate(dev, seed)
+    out["fields"] = check_sharding_fields(dev, seed)
+    out["step_s"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="corpus size (>= 200000 for a record)")
@@ -4765,12 +5114,17 @@ def main(argv=None) -> int:
     gnn_out, gnn_launches = drive(run_gnn_path, (), dev, args.seed)
     gnn_out["step_s"] = time.perf_counter() - t0
     log(f"  GNN step: {gnn_out['step_s']:.2f} s")
+    log("[5] sharded and dry run: every cell on meta tensors, five cells against the card, "
+        "the ring functions and the sharding fields")
+    dry_out, dry_launches = drive(run_sharded_dryrun_path, ("fm_interaction", "fused_auto"),
+                                  dev, args.seed)
+    log(f"  sharded and dry-run step: {dry_out['step_s']:.2f} s")
     train_launches = {k: fm_train_launches[k] + launch_train_launches[k]
                       + retrieval_train_launches[k] for k in wrappers}
     launches = {k: exact_launches[k] + serve_launches[k] + quant_launches[k] + part_launches[k]
                 + tier_launches[k] + shard_launches[k] + mut_launches[k] + recsys_launches[k]
                 + models_launches[k] + train_launches[k] + lm_launches[k]
-                + lm_train_launches[k] + gnn_launches[k] for k in wrappers}
+                + lm_train_launches[k] + gnn_launches[k] + dry_launches[k] for k in wrappers}
     # one more build, profiled (no warm-up: the kernels ran in the first).
     # Last of all: after its many thousand launches the profiler drops the
     # events of later profiles.
@@ -4826,7 +5180,7 @@ def main(argv=None) -> int:
                                      "recsys": recsys_out, "recsys_cut_vocab": recsys_small,
                                      "recsys_models": models_out, "train": train_out,
                                      "lm": lm_out, "lm_train": lm_train_out,
-                                     "gnn": gnn_out,
+                                     "gnn": gnn_out, "sharded_dryrun": dry_out,
                                      "profiles": profiles, "small_input": small,
                                      "launches": {"exact": exact_launches,
                                                   "serve": serve_launches,
@@ -4842,7 +5196,8 @@ def main(argv=None) -> int:
                                                   "train_retrieval": retrieval_train_launches,
                                                   "lm": lm_launches,
                                                   "lm_train": lm_train_launches,
-                                                  "gnn": gnn_launches},
+                                                  "gnn": gnn_launches,
+                                                  "sharded_dryrun": dry_launches},
                                      "gather_descent_block": kern["gather_auto"]["descent_block"],
                                      "gather_narrow_block": kern["gather_auto"]["narrow_block"],
                                      "fm_serve_p99": kern["fm_interaction"]["serve_p99"],

@@ -7,10 +7,10 @@ from repro_torch.train.optim import OptimConfig
 
 
 def make_config(**kw) -> RecsysConfig:
-    return RecsysConfig(
-        name="bert4rec", kind="bert4rec", embed_dim=64, n_blocks=2,
-        n_heads=2, seq_len=200, n_items=1_000_000, n_sparse=0, **kw,
-    )
+    base = dict(name="bert4rec", kind="bert4rec", embed_dim=64, n_blocks=2,
+                n_heads=2, seq_len=200, n_items=1_000_000, n_sparse=0)
+    base.update(kw)  # overrides (n_blocks for the dry run's count, ...)
+    return RecsysConfig(**base)
 
 
 def make_reduced() -> RecsysConfig:

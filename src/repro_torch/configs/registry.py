@@ -1,9 +1,7 @@
 """Architecture registry: ``get_arch(<id>)`` resolution.
 
 Every architecture id of the reference is ported: the five LM ids, the GNN
-id (graphcast) and the four recsys ids. ``NOT_PORTED`` is empty; an id
-listed there would raise ``KeyError`` naming the ROADMAP.md item that ports
-it.
+id (graphcast) and the four recsys ids.
 """
 from __future__ import annotations
 
@@ -37,13 +35,12 @@ ARCHS: dict[str, ArchSpec] = {
     )
 }
 
-#: the reference's other architecture ids, with the item that ports each
-NOT_PORTED: dict[str, str] = {}
-
-
 def get_arch(arch_id: str) -> ArchSpec:
-    if arch_id in NOT_PORTED:
-        raise KeyError(f"arch {arch_id!r} is not ported yet: {NOT_PORTED[arch_id]}")
     if arch_id not in ARCHS:
         raise KeyError(f"unknown arch {arch_id!r}; have {sorted(ARCHS)}")
     return ARCHS[arch_id]
+
+
+def all_cells() -> list[tuple[str, str]]:
+    """Every (arch, shape) pair, the 40-cell table, in the registry's order."""
+    return [(a, c.name) for a, s in ARCHS.items() for c in s.shapes]

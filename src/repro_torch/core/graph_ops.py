@@ -46,10 +46,13 @@ def largest_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     and only their order is repaired (index, then a stable sort by value).
     Rows where the k-th value ties past the cut are sorted in full
     (stably, ``TIE_SORT_ROWS`` at a time). That takes one synchronisation
-    on the card."""
+    on the card. On meta tensors (the dry run) it returns ``torch.topk``'s
+    shapes without the repair."""
     n = x.shape[1]
     if k >= n:
         return torch.sort(x, dim=1, descending=True, stable=True)
+    if x.is_meta:  # shapes only: a meta tensor has no ties to read
+        return torch.topk(x, k, dim=1)
     vals, idx = torch.topk(x, k + 1, dim=1)
     tied = (vals[:, k] == vals[:, k - 1]).nonzero()[:, 0]
     vals, idx = vals[:, :k], idx[:, :k]
@@ -189,15 +192,16 @@ def _segments(dst: torch.Tensor, n_nodes: int) -> torch.Tensor:
     return torch.where(valid, dst, n_nodes).long()
 
 
-def scatter_sum(messages: torch.Tensor, dst: torch.Tensor, n_nodes: int) -> torch.Tensor:
+def scatter_sum(messages: torch.Tensor, dst: torch.Tensor, n_nodes: int,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Σ of per-edge messages (E, ...) into destination nodes (GNN
-    aggregation): (n_nodes, ...) in the messages' dtype. Ids outside
-    [0, n_nodes) are dropped. Each node's sum is formed in f32 and rounded
-    once to the messages' dtype (the reference on the CPU adds bf16
+    aggregation): (n_nodes, ...) in ``dtype`` (default the messages'). Ids
+    outside [0, n_nodes) are dropped. Each node's sum is formed in f32 and
+    rounded once to that dtype (the reference on the CPU adds bf16
     messages one at a time in bf16; see ROADMAP.md)."""
     out = messages.new_zeros((n_nodes + 1, *messages.shape[1:]), dtype=torch.float32)
     out = out.index_add(0, _segments(dst, n_nodes), messages.float())
-    return out[:n_nodes].to(messages.dtype)
+    return out[:n_nodes].to(dtype or messages.dtype)
 
 
 def scatter_max(messages: torch.Tensor, dst: torch.Tensor, n_nodes: int) -> torch.Tensor:

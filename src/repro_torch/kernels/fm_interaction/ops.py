@@ -1,7 +1,8 @@
 """Dispatch for the FM second-order interaction, and its gradient.
 
 CPU tensors run the plain version (``ref.py``); CUDA tensors launch the
-hand-written kernel (``kernels/csrc/fm_interaction.cu``) or raise.
+hand-written kernel (``kernels/csrc/fm_interaction.cu``) or raise; meta
+tensors (``launch.dryrun``) get the result's shape and nothing is counted.
 ``fm_interaction.launches`` counts kernel launches only (forwards).
 
 ``fm_interaction`` is a ``torch.autograd.Function``: the kernel's result
@@ -38,6 +39,8 @@ def _forward(emb: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"fm_interaction: shape {tuple(emb.shape)} exceeds int32")
     if device.type == "cpu":
         return fm_interaction_ref(emb)
+    if device.type == "meta":  # the dry run: the result's shape, no work
+        return torch.empty((b,), dtype=torch.float32, device=device)
     if device.type != "cuda":
         raise ValueError(f"fm_interaction: unsupported device {device}")
     if b == 0 or f * d == 0:  # nothing to launch: an empty sum is 0

@@ -1,7 +1,8 @@
 """Dispatch for the brute-force AUTO scorer.
 
 CPU tensors run the plain version (``ref.py``); CUDA tensors launch the
-hand-written kernel (``kernels/csrc/fused_auto.cu``) or raise.
+hand-written kernel (``kernels/csrc/fused_auto.cu``) or raise; meta
+tensors (``launch.dryrun``) get the result's shape and nothing is counted.
 ``fused_auto.launches`` counts kernel launches only.
 """
 from __future__ import annotations
@@ -47,6 +48,8 @@ def fused_auto(
         raise ValueError(f"fused_auto: mask must be {(b, l)}, got {tuple(mask.shape)}")
     if device.type == "cpu":
         return fused_auto_ref(qv, qa, xv, xa, alpha, mode, mask)
+    if device.type == "meta":  # the dry run: the result's shape, no work
+        return torch.empty((b, n), dtype=torch.float32, device=device)
     if device.type != "cuda":
         raise ValueError(f"fused_auto: unsupported device {device}")
     qlo, qhi = split_targets(qa)

@@ -10,11 +10,14 @@ S`` a sharded engine with one HELP sub-index per model shard
 two are mutually exclusive. The build runs on the CUDA card unless
 ``--device cpu`` asks for the kernels' plain PyTorch versions.
 
-The reference's module of the same name also holds the cell builder of its
-LM, GNN and recsys cells (``build_cell``), JAX sharding and dry-run
-machinery; that part waits for the sharded and dry-run side (ROADMAP.md
-queue 1, item 16.3). The cells' FLOP counts are ``models.recsys.model_flops``
-and ``models.transformer.model_flops``.
+It also holds the cell builder, as the reference's module does:
+``build_cell(spec, cell, mesh)`` gives an (architecture × shape × mesh)
+cell's step (``train.step``), its arguments as meta tensors (shapes and
+dtypes, nothing allocated), their partition specs and the outputs'
+(``distributed.sharding``), the donated arguments and the reference's
+``meta`` (parameter counts and ``model_flops``). The dry run
+(``launch.dryrun``) reads it on the production mesh; on a ``LocalMesh`` the
+same specs split real tensors.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.build --device cpu --n 2048 \\
@@ -27,7 +30,240 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import math
 import time
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchSpec, ShapeCell
+from repro_torch.distributed import sharding as shard
+from repro_torch.distributed.sharding import P
+from repro_torch.models import gnn as gnn_mod
+from repro_torch.models import recsys as recsys_mod
+from repro_torch.models import transformer as tfm
+from repro_torch.models.common import Precision, tree_bytes
+from repro_torch.train import optim as optim_mod
+from repro_torch.train import step as step_mod
+
+
+class CellBuild(NamedTuple):
+    step: Callable  # positional-arguments step (train.step)
+    abstract_args: tuple  # trees of meta tensors
+    in_specs: tuple  # trees of P, the arguments' structure
+    out_specs: Any  # trees of P, or None (the layout left open)
+    meta: dict  # parameter counts, model_flops, notes
+    donate: tuple = ()  # donated arguments (params and state; the decode cache)
+
+
+def _meta(shape, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# LM cells
+# ---------------------------------------------------------------------------
+
+
+def _build_lm(spec: ArchSpec, cell: ShapeCell, mesh, overrides: Optional[dict] = None
+              ) -> CellBuild:
+    overrides = dict(overrides or {})
+    micro_batches = overrides.pop("micro_batches", spec.micro_batches)
+    unroll_micro = overrides.pop("unroll_micro", False)
+    bx = shard.batch_axes(mesh)
+    train_like = cell.kind in ("train", "prefill")
+    cfg_kw = {}
+    if train_like and overrides.pop("seq_shard_acts", True):
+        cfg_kw = {"act_dp_axes": bx, "act_seq_axis": "model"}
+    cfg: tfm.TransformerConfig = spec.make_config(**cfg_kw)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    if cfg.moe:
+        ep = cfg.moe.n_experts % mesh.shape["model"] == 0
+        cfg = dataclasses.replace(cfg, moe_expert_axis="model" if ep else None,
+                                  moe_capacity_axes=bx, moe_ff_axis=None if ep else "model")
+    if cell.kind in ("prefill", "decode"):  # serving checkpoints are bf16
+        cfg = dataclasses.replace(cfg, precision=Precision(param_dtype=torch.bfloat16))
+
+    params = tfm.abstract_params(cfg)
+    p_specs = shard.lm_param_specs(cfg, mesh, fsdp=(cell.kind == "train"))
+    b, s = cell.global_batch, cell.seq_len
+    meta = {
+        "params": cfg.param_count,
+        "active_params": cfg.active_param_count,
+        "seq_len": s,
+        "global_batch": b,
+        # 6 (train) or 2 · active parameters · tokens, the embedding and
+        # head included, attention's quadratic term left out
+        "model_flops": tfm.model_flops(cfg, cell),
+    }
+
+    if cell.kind == "train":
+        opt_state = optim_mod.abstract_state(spec.optim, params)
+        o_specs = shard.opt_state_specs(spec.optim, p_specs, params)
+        batch = {"tokens": _meta((b, s), torch.int32), "labels": _meta((b, s), torch.int32)}
+        step = step_mod.make_lm_train_step(cfg, spec.optim, micro_batches,
+                                           unroll_micro=unroll_micro)
+        return CellBuild(
+            step=step, abstract_args=(params, opt_state, batch),
+            in_specs=(p_specs, o_specs, shard.lm_batch_specs(mesh, b)),
+            out_specs=(p_specs, o_specs, {"loss": P(), "grad_norm": P()}),
+            meta=meta | {"micro_batches": micro_batches}, donate=(0, 1))
+
+    b_specs = {"tokens": P(shard.maybe(mesh, b, bx), None)}
+    if cell.kind == "prefill":
+        return CellBuild(
+            step=step_mod.make_lm_prefill_step(cfg),
+            abstract_args=(params, {"tokens": _meta((b, s), torch.int32)}),
+            in_specs=(p_specs, b_specs), out_specs=None, meta=meta)
+
+    # decode: one new token against a seq_len KV cache
+    cache = tfm.abstract_cache(cfg, b, s)
+    c_specs = shard.lm_cache_specs(cfg, mesh, b, seq_shard=True)
+    return CellBuild(
+        step=step_mod.make_lm_decode_step(cfg),
+        abstract_args=(params, cache, {"tokens": _meta((b, 1), torch.int32)}),
+        in_specs=(p_specs, c_specs, b_specs), out_specs=(c_specs, None),
+        meta=meta | {"kv_cache_bytes": tree_bytes(cache)}, donate=(1,))
+
+
+# ---------------------------------------------------------------------------
+# GNN cells
+# ---------------------------------------------------------------------------
+
+
+def _build_gnn(spec: ArchSpec, cell: ShapeCell, mesh, overrides: Optional[dict] = None
+               ) -> CellBuild:
+    overrides = dict(overrides or {})
+    all_axes = tuple(mesh.axis_names)
+    if overrides.pop("shard_activations", True):
+        overrides.setdefault("edge_shard_axes", all_axes)
+        if cell.n_nodes % math.prod(mesh.shape.values()) == 0:
+            overrides.setdefault("node_shard_axes", all_axes)
+    cfg: gnn_mod.GNNConfig = spec.make_config(cell, **overrides)
+    params = gnn_mod.abstract_params(cfg)
+    p_specs = shard.gnn_param_specs(cfg, mesh)
+    opt_state = optim_mod.abstract_state(spec.optim, params)
+    o_specs = shard.opt_state_specs(spec.optim, p_specs, params)
+    n, e = cell.n_nodes, cell.n_edges
+    batch = {
+        "node_feats": _meta((n, cell.d_feat), torch.float32),
+        "src": _meta((e,), torch.int32),
+        "dst": _meta((e,), torch.int32),
+        "edge_mask": _meta((e,), torch.bool),
+        "targets": _meta((n, cell.d_out), torch.float32),
+        "node_mask": _meta((n,), torch.float32),
+    }
+    d = cfg.d_hidden
+    per_layer = 6 * d * d * e + 4 * d * d * n  # edge MLP (2d → d → d) + node MLP
+    enc_dec = 2 * cell.d_feat * d * n + 2 * d * cell.d_out * n
+    meta = {"params": cfg.param_count, "n_nodes": n, "n_edges": e,
+            "model_flops": 3.0 * (cfg.n_layers * per_layer + enc_dec)}  # ×3: train
+    return CellBuild(
+        step=step_mod.make_gnn_train_step(cfg, spec.optim),
+        abstract_args=(params, opt_state, batch),
+        in_specs=(p_specs, o_specs, shard.gnn_batch_specs(mesh, e)),
+        out_specs=(p_specs, o_specs, {"loss": P(), "grad_norm": P()}),
+        meta=meta, donate=(0, 1))
+
+
+# ---------------------------------------------------------------------------
+# RecSys cells
+# ---------------------------------------------------------------------------
+
+N_MASKED = 20  # bert4rec masked positions a sequence
+N_NEG = 8192  # shared sampled-softmax negatives
+
+
+def _recsys_batch(cfg: recsys_mod.RecsysConfig, b: int, train: bool) -> dict:
+    if cfg.kind == "bert4rec":
+        base = {"items": _meta((b, cfg.seq_len), torch.int32)}
+        if train:
+            base |= {"masked_pos": _meta((b, N_MASKED), torch.int32),
+                     "labels": _meta((b, N_MASKED), torch.int32),
+                     "neg_ids": _meta((N_NEG,), torch.int32)}
+        return base
+    base = {"sparse": _meta((b, cfg.n_sparse), torch.int32)}
+    if cfg.n_dense:
+        base["dense"] = _meta((b, cfg.n_dense), torch.float32)
+    if train:
+        base["labels"] = _meta((b,), torch.float32)
+    return base
+
+
+def _build_recsys(spec: ArchSpec, cell: ShapeCell, mesh, overrides: Optional[dict] = None
+                  ) -> CellBuild:
+    overrides = dict(overrides or {})
+    serve_chunk = overrides.pop("serve_chunk", 4096)
+    score_chunk = overrides.pop("score_chunk", 16384)
+    cfg: recsys_mod.RecsysConfig = spec.make_config(**overrides)
+    params = recsys_mod.abstract_params(cfg)
+    p_specs = shard.recsys_param_specs(cfg, mesh, params)
+    b = cell.global_batch
+    # dense compute a step: embedding rows are lookups, not FLOPs
+    meta = {"params": cfg.param_count, "model_flops": recsys_mod.model_flops(cfg, cell)}
+
+    if cell.kind == "train":
+        opt_state = optim_mod.abstract_state(spec.optim, params)
+        o_specs = shard.opt_state_specs(spec.optim, p_specs, params)
+        return CellBuild(
+            step=step_mod.make_recsys_train_step(cfg, spec.optim),
+            abstract_args=(params, opt_state, _recsys_batch(cfg, b, train=True)),
+            in_specs=(p_specs, o_specs, shard.recsys_batch_specs(cfg, mesh, b, train=True)),
+            out_specs=(p_specs, o_specs, {"loss": P(), "grad_norm": P()}),
+            meta=meta, donate=(0, 1))
+
+    if cell.kind == "serve":
+        if cfg.kind == "bert4rec":
+            def step(params, batch):
+                return recsys_mod.bert4rec_serve_topk(cfg, params, batch["items"],
+                                                      batch_chunk=serve_chunk)
+        else:
+            step = step_mod.make_recsys_serve_step(cfg)
+        return CellBuild(
+            step=step, abstract_args=(params, _recsys_batch(cfg, b, train=False)),
+            in_specs=(p_specs, shard.recsys_batch_specs(cfg, mesh, b, train=False)),
+            out_specs=None, meta=meta)
+
+    # retrieval_cand: the STABLE hybrid scoring of n_candidates items
+    n_cand, l_attr = cell.n_candidates, cfg.n_attr_dims
+    cx = shard.maybe(mesh, n_cand, "model")
+    batch = _recsys_batch(cfg, b, train=False) | {
+        "query_attrs": _meta((b, l_attr), torch.int32),
+        "item_embs": _meta((n_cand, cfg.embed_dim), torch.float32),
+        "item_attrs": _meta((n_cand, l_attr), torch.int32),
+    }
+    b_specs = shard.recsys_batch_specs(cfg, mesh, b, train=False) | {
+        "query_attrs": P(None, None), "item_embs": P(cx, None), "item_attrs": P(cx, None)}
+    model = mesh.shape["model"]
+    step = step_mod.make_recsys_retrieval_step(
+        cfg, k=100, score_chunk=score_chunk,
+        topk_shards=model if n_cand % model == 0 else 1)
+    return CellBuild(step=step, abstract_args=(params, batch), in_specs=(p_specs, b_specs),
+                     out_specs=None, meta=meta | {"n_candidates": n_cand})
+
+
+def build_cell(spec: ArchSpec, cell: ShapeCell, mesh, overrides: Optional[dict] = None
+               ) -> CellBuild:
+    """The cell's ``CellBuild`` on ``mesh`` (anything with ``shape`` and
+    ``axis_names``). ``overrides``: ``micro_batches``, ``unroll_micro``,
+    ``seq_shard_acts`` (LM), ``shard_activations`` (GNN), ``serve_chunk``,
+    ``score_chunk`` (recsys), and config fields."""
+    if cell.skipped:
+        raise ValueError(f"cell {spec.arch_id}×{cell.name} is skipped: {cell.skip_reason}")
+    if spec.family == "lm":
+        return _build_lm(spec, cell, mesh, overrides)
+    if spec.family == "gnn":
+        return _build_gnn(spec, cell, mesh, overrides)
+    if spec.family == "recsys":
+        return _build_recsys(spec, cell, mesh, overrides)
+    raise ValueError(spec.family)
+
+
+# ---------------------------------------------------------------------------
+# Offline STABLE index builder CLI
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> None:

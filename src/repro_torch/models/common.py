@@ -16,6 +16,8 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.overrides import TorchFunctionMode
+from torch.utils._device import _device_constructors
 
 from repro_torch.core import to_tensor
 
@@ -154,6 +156,27 @@ def unstack_layers(layers: dict, n: int) -> list[dict]:
     parts = {k: unstack_layers(v, n) if isinstance(v, dict) else v.unbind(0)
              for k, v in layers.items()}
     return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+
+
+class _OnMeta(TorchFunctionMode):
+    """Every tensor factory call makes a meta tensor, whatever device it
+    names (``torch.device("meta")`` as a context only fills in a device
+    that is not named, and the initialisers name theirs)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if func in _device_constructors():
+            kwargs["device"] = "meta"
+        return func(*args, **kwargs)
+
+
+def abstract_like(init_fn: Callable[[], object]):
+    """``init_fn()``'s tree with every tensor on ``torch.device("meta")``:
+    shapes and dtypes, nothing allocated (``jax.eval_shape``). The
+    initialisers draw from a ``torch.Generator`` on the device they are
+    given; pass ``device="cpu"`` where no card is needed."""
+    with _OnMeta():
+        return init_fn()
 
 
 def tree_bytes(tree) -> int:

@@ -15,8 +15,10 @@ the layers in the compute dtype, the aggregate cast back to it,
 Nothing here launches a hand-written kernel: the reference computes these
 layers with plain ``jnp`` and ``jax.ops.segment_*``, not in Pallas. The
 sharding fields of the config (``edge_shard_axes``, ``node_shard_axes``)
-belong to the sharded side, which is not ported: a config that sets one
-raises. ``unroll_layers`` changes nothing (the layers run in a Python loop).
+are the reference's ``with_sharding_constraint`` hints on the edge messages
+and node states: layout only, so in one process they change nothing.
+``launch.build.build_cell`` sets them as the reference's does.
+``unroll_layers`` changes nothing either (the layers run in a Python loop).
 """
 from __future__ import annotations
 
@@ -32,9 +34,6 @@ from repro_torch.models.common import MIXED, Precision
 
 Tensor = torch.Tensor
 
-_SHARDED = "ROADMAP.md queue 1, item 16.3 (the sharded and dry-run side)"
-
-
 @dataclasses.dataclass(frozen=True)
 class GNNConfig:
     name: str
@@ -47,8 +46,8 @@ class GNNConfig:
     aggregator: str = "sum"
     precision: Precision = MIXED
     unroll_layers: bool = False  # the reference's dry-run FLOP passes
-    # the reference's activation shardings (edge messages, node states);
-    # not ported, a set field raises
+    # the reference's activation shardings (edge messages, node states):
+    # layout only, no value changes
     edge_shard_axes: object = None
     node_shard_axes: object = None
 
@@ -60,13 +59,6 @@ class GNNConfig:
         dec = d * self.d_out + self.d_out
         per_layer = (2 * d) * d + d + d * d + d + (2 * d) * d + d  # edge+node MLPs
         return enc + dec + self.n_layers * per_layer
-
-
-def _one_device(cfg: GNNConfig) -> None:
-    """Raise for a config that asks for the reference's sharded layout."""
-    set_ = [f for f in ("edge_shard_axes", "node_shard_axes") if getattr(cfg, f) is not None]
-    if set_:
-        raise NotImplementedError(f"{cfg.name}: sharding fields {set_} are not ported: {_SHARDED}")
 
 
 # ---------------------------------------------------------------------------
@@ -153,7 +145,6 @@ def forward(cfg: GNNConfig, params: dict, node_feats: Tensor, src: Tensor, dst: 
     messages to ids outside [0, N) are dropped. Under the ``max``
     aggregator a node with no in-edge gets −inf, and its state turns
     non-finite, as in the reference."""
-    _one_device(cfg)
     cdt = cfg.precision.compute_dtype
     n = node_feats.shape[0]
     enc = params["encoder"]

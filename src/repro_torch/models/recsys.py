@@ -222,9 +222,10 @@ def _wrap_ids(ids, vocab: int, device) -> Tensor:
     does. An id outside [−V, V) raises ``IndexError``: the reference's
     ``jnp.take`` fills such a row with NaN, and an unchecked flat gather
     would read another field's row. The check reads the ids' min and max,
-    one synchronisation on the card."""
+    one synchronisation on the card; meta ids (the dry run) have none to
+    read and skip it."""
     ids = to_tensor(ids, torch.int64, device)
-    if ids.numel():
+    if ids.numel() and not ids.is_meta:
         lo, hi = torch.aminmax(ids)
         if int(lo) < -vocab or int(hi) >= vocab:
             raise IndexError(

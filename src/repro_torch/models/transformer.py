@@ -30,8 +30,10 @@ per forward, so a gradient reaches them as one stack of the L slices.
 
 Nothing here launches a hand-written kernel: the reference computes these
 layers in plain ``jnp``, not in Pallas. The sharding fields of the config
-(``act_*`` and ``moe_*_axis``) belong to the sharded side, which is not
-ported: a config that sets one raises. ``unroll_*`` change no result here.
+(``act_*`` and ``moe_*``) are the reference's ``with_sharding_constraint``
+hints, which move data between devices and never change a value; in one
+process they change nothing. ``launch.build.build_cell`` sets them as the
+reference's does. ``unroll_*`` change no result here either.
 Parameters are nested dicts of tensors; the reference's cross with
 ``params_from_numpy``.
 """
@@ -50,9 +52,6 @@ from repro_torch.models import common
 from repro_torch.models.common import MIXED, Precision
 
 Tensor = torch.Tensor
-
-_SHARDED = "ROADMAP.md queue 1, item 16.3 (the sharded and dry-run side)"
-
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
@@ -80,14 +79,14 @@ class TransformerConfig:
     q_chunk: int = 512
     z_loss: float = 1e-4
     # the reference's sequence-parallel activation sharding (the residual
-    # stream's mesh axes); not ported, a set field raises
+    # stream's mesh axes): layout only, no value changes
     act_dp_axes: Optional[tuple] = None
     act_seq_axis: Optional[str] = None
     # the reference's dry-run FLOP counting unrolls its scans; a Python loop
     # here, so these change nothing
     unroll_attn: bool = False
     unroll_layers: bool = False
-    # the reference's MoE buffer shardings; not ported, a set field raises
+    # the reference's MoE buffer shardings: layout only, no value changes
     moe_expert_axis: Optional[str] = None
     moe_capacity_axes: Optional[tuple] = None
     moe_ff_axis: Optional[str] = None
@@ -119,15 +118,6 @@ class TransformerConfig:
         )
         ffn = self.moe.top_k * 3 * d * self.moe.d_ff_expert + d * self.moe.n_experts
         return L * (attn + ffn + 2 * d) + 2 * self.vocab * d + d
-
-
-def _one_device(cfg: TransformerConfig) -> None:
-    """Raise for a config that asks for the reference's sharded layout."""
-    fields = ("act_dp_axes", "act_seq_axis", "moe_expert_axis", "moe_capacity_axes",
-              "moe_ff_axis")
-    set_ = [f for f in fields if getattr(cfg, f) is not None]
-    if set_:
-        raise NotImplementedError(f"{cfg.name}: sharding fields {set_} are not ported: {_SHARDED}")
 
 
 # ---------------------------------------------------------------------------
@@ -341,7 +331,6 @@ def moe_ffn(cfg: TransformerConfig, x: Tensor, p: dict, stats: Optional[dict] = 
     ``stats["assignments"]``, and appends the (T, E) f32 router logits to
     ``stats["router_logits"]`` (``unsettled_tokens`` reads them).
     """
-    _one_device(cfg)
     moe = cfg.moe
     t, d = x.shape
     e, k = moe.n_experts, moe.top_k
@@ -432,7 +421,6 @@ def unsettled_tokens(cfg: TransformerConfig, router_logits: list, eps: float) ->
 
 def _layer(cfg: TransformerConfig, x: Tensor, lp: dict, positions: Tensor,
            stats: Optional[dict] = None) -> Tensor:
-    _one_device(cfg)
     b, s, d = x.shape
     dh, kv, g = cfg.d_head, cfg.n_kv_heads, cfg.q_per_kv
     cdt = cfg.precision.compute_dtype
@@ -559,7 +547,6 @@ def decode_step(cfg: TransformerConfig, params: dict, cache: dict, tokens: Tenso
     (roped at its absolute position) and values go to slot ``pos mod
     S_cache`` (SWA) or ``min(pos, S_cache − 1)`` (past the end the last slot
     is overwritten, as in the reference), and ``len`` grows by one."""
-    _one_device(cfg)
     b = tokens.shape[0]
     dh, kv, g = cfg.d_head, cfg.n_kv_heads, cfg.q_per_kv
     cdt = cfg.precision.compute_dtype

@@ -23,7 +23,10 @@ on integer data, the delta scan equals its plain version, and the old
 index's memory is freed after the swap. A sharded index on a (data=1,
 model=4) mesh on the card: the exhaustive merge equals a brute oracle
 scored by the same kernel, data=2 equals data=1 and a save and load
-equals the index saved, bit for bit.
+equals the index saved, bit for bit. The ring matmuls on a (1, 4) mesh on
+the card equal the plain sums of their partials in ring order, bit for
+bit, and fm's train_batch cell built on a (1, 1) mesh holds exactly the
+dry run's argument bytes on the card and counts its FLOPs.
 """
 import dataclasses
 import functools
@@ -1378,3 +1381,82 @@ def test_graph_ops_on_card_match_cpu(cuda_dev, op, dtype):
     for got, want, t in ((y_card, y_cpu, tol), (g_card, g_cpu, grad_tol)):
         assert float((got.float() - want.float()).abs().max()) <= t * float(
             want.float().abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The sharded and dry-run side on the card
+# ---------------------------------------------------------------------------
+
+
+def test_ring_matmuls_on_card_equal_the_plain_partial_sums(cuda_dev):
+    """Both ring matmuls on a (data 1, model 4) mesh on the one card: each
+    shard's result is the plain sum of the same partials in ring order,
+    bit for bit, and within 1e-5·max of one matmul."""
+    from repro_torch.distributed.collective_matmul import (
+        ring_allreduce_matmul, ring_reduce_scatter_matmul,
+    )
+    from repro_torch.distributed.sharding import NamedSharding, P
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh(1, 4)
+    g = torch.Generator(device=cuda_dev).manual_seed(0)
+    x = torch.randn((1024, 2048), generator=g, device=cuda_dev)
+    w = torch.randn((2048, 512), generator=g, device=cuda_dev)
+    xs = NamedSharding(mesh, P(None, "model")).split(x)
+    ws = NamedSharding(mesh, P("model", None)).split(w)
+    partials = [torch.matmul(a, b) for a, b in zip(xs, ws)]
+
+    def ring_order(parts, i):
+        acc = parts[(i + 1) % 4]
+        for s in range(2, 5):
+            acc = acc + parts[(i + s) % 4]
+        return acc
+
+    ar = ring_allreduce_matmul(mesh, xs, ws)
+    rs = ring_reduce_scatter_matmul(mesh, xs, ws)
+    for i in range(4):
+        assert ar[i].is_cuda and torch.equal(ar[i], ring_order(partials, i))
+        assert torch.equal(rs[i], ring_order([p[i * 256:(i + 1) * 256] for p in partials], i))
+    ref = torch.matmul(x, w)  # f32: PyTorch leaves TF32 off for matmuls by default
+    assert float((torch.cat(rs) - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_build_cell_fm_train_arguments_on_card_hold_the_dry_run_bytes(cuda_dev):
+    """fm's train_batch cell built on a (1, 1) mesh: its arguments drawn on
+    the card (the initialisers, the AdamW state, the launcher's batch)
+    request exactly the dry run's argument bytes, and one step counts on
+    the card the FLOPs the meta count counts."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import tree as tree_mod
+    from repro_torch.distributed.sharding import sharded_bytes
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.build import build_cell
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.train.optim import init_state
+
+    spec = get_arch("fm")
+    cell = spec.cell("train_batch")
+    mesh = make_local_mesh(1, 1)
+    build = build_cell(spec, cell, mesh)
+    want = sharded_bytes(mesh, build.abstract_args, build.in_specs)
+    meta_flops = dryrun.count_step(build)["flops"]
+    warm = torch.zeros(1, device=cuda_dev)  # the allocator's statistics exist from here
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    cfg = spec.make_config()
+    params = recsys.init_params(cfg, 0, cuda_dev)
+    args = (params, init_state(spec.optim, params),
+            make_batch_fn(spec, cfg, cell.global_batch, 64, cuda_dev)(0))
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["requested_bytes.all.current"] - before == want
+    assert [(tuple(t.shape), t.dtype) for t in tree_mod.leaves(args)] == \
+        [(tuple(t.shape), t.dtype) for t in tree_mod.leaves(build.abstract_args)]
+    before = fm_interaction.launches
+    with FlopCounterMode(display=False) as fc:
+        _, _, metrics = build.step(*args)
+    assert fc.get_total_flops() == meta_flops
+    assert fm_interaction.launches > before and bool(torch.isfinite(metrics["loss"]))
+    del warm

@@ -349,11 +349,13 @@ def test_params_from_numpy_checks_keys_and_shapes_and_sharding_fields_raise():
     del bad["layers"]["ln"]
     with pytest.raises(ValueError):
         tgnn.params_from_numpy(cfg, bad, device="cpu")
+    # the sharding fields are layout hints: accepted, and no value changes
+    feats, ids = torch.randn(4, 16, generator=torch.Generator().manual_seed(0)), \
+        torch.tensor([0, 3], dtype=torch.int32)
+    want = tgnn.forward(cfg, p, feats, ids, ids.flip(0))
     for field in ("edge_shard_axes", "node_shard_axes"):
         sharded = dataclasses.replace(cfg, **{field: ("data",)})
-        with pytest.raises(NotImplementedError, match="item 16.3"):
-            tgnn.forward(sharded, p, torch.zeros(4, 16), torch.zeros(2, dtype=torch.int32),
-                         torch.zeros(2, dtype=torch.int32))
+        assert torch.equal(tgnn.forward(sharded, p, feats, ids, ids.flip(0)), want)
     with pytest.raises(ValueError):
         tgnn._aggregate(dataclasses.replace(cfg, aggregator="median"), torch.zeros(2, 3),
                         torch.zeros(2, dtype=torch.int32), 2)

@@ -36,7 +36,7 @@ from repro_torch.configs import bert4rec as tbert  # noqa: E402
 from repro_torch.configs import dlrm_rm2 as tdlrm  # noqa: E402
 from repro_torch.configs import fm as tfm  # noqa: E402
 from repro_torch.configs import xdeepfm as txdeepfm  # noqa: E402
-from repro_torch.configs.registry import ARCHS, NOT_PORTED, get_arch  # noqa: E402
+from repro_torch.configs.registry import ARCHS, get_arch  # noqa: E402
 from repro_torch.kernels.fm_interaction.ops import fm_interaction  # noqa: E402
 from repro_torch.models import recsys as trecsys  # noqa: E402
 from repro_torch.train import step as tstep  # noqa: E402
@@ -222,9 +222,8 @@ def test_get_arch_returns_the_ported_gnn_spec():
 
 
 def test_every_reference_arch_is_ported():
-    """``NOT_PORTED`` is empty: every id of the reference's registry
-    resolves, and an unknown id still raises ``KeyError``."""
-    assert NOT_PORTED == {}
+    """Every id of the reference's registry resolves, and an unknown id
+    still raises ``KeyError``."""
     for arch_id in jregistry.ARCHS:
         assert get_arch(arch_id).arch_id == arch_id
     with pytest.raises(KeyError, match="unknown arch"):
@@ -234,7 +233,7 @@ def test_every_reference_arch_is_ported():
 @pytest.mark.parametrize("arch_id", LM_IDS)
 def test_get_arch_returns_the_ported_lm_spec(arch_id):
     spec, ref = get_arch(arch_id), jregistry.get_arch(arch_id)
-    assert arch_id not in NOT_PORTED and spec.family == ref.family == "lm"
+    assert spec.family == ref.family == "lm"
     assert (spec.arch_id, spec.source, spec.micro_batches) == \
         (ref.arch_id, ref.source, ref.micro_batches)
     assert [c.name for c in spec.shapes] == [c.name for c in ref.shapes]
@@ -246,7 +245,7 @@ def test_get_arch_returns_the_ported_lm_spec(arch_id):
 def test_get_arch_returns_the_ported_recsys_spec(arch_id):
     spec = get_arch(arch_id)
     ref = jregistry.get_arch(arch_id)
-    assert arch_id not in NOT_PORTED and spec.family == "recsys"
+    assert spec.family == "recsys"
     assert (spec.arch_id, spec.source) == (ref.arch_id, ref.source)
     assert spec.make_config().kind == ref.make_config().kind
     assert [c.name for c in spec.shapes] == [c.name for c in ref.shapes]
@@ -255,7 +254,6 @@ def test_get_arch_returns_the_ported_recsys_spec(arch_id):
 def test_registry_holds_every_recsys_and_lm_id():
     assert set(RECSYS_IDS + LM_IDS) <= set(ARCHS)
     assert sorted(ARCHS) == sorted(jregistry.ARCHS)
-    assert not set(ARCHS) & set(NOT_PORTED)
 
 
 def test_unported_kinds_raise():
