@@ -146,12 +146,14 @@ Phases:
      batches after a warm-up) with peak memory and model FLOP/s, each
      profiled once. Then training (AdamW from each spec, lr 1e-3): the
      fm_interaction autograd Function at the train_batch shape (65,536, 39,
-     10), its forward bit for bit against its plain version and its
-     gradient on the card against the CPU's bit for bit there and at B in
-     {1, 255, 257}, F in {1, 39}, D in {1, 10, 64}, timed beside its
-     bounds; make_recsys_train_step on each model's full-width parameters
-     (fm, dlrm-rm2 and xdeepfm at B = 65,536; bert4rec at B = 8,192 with 20
-     masked positions and 8,192 shared negatives), one warm-up step and 5
+     10), its forward kernel bit for bit against its plain version and its
+     backward kernel's gradient on the card against the CPU's plain ops bit
+     for bit there and at B in {1, 255, 257}, F in {1, 39}, D in {1, 10,
+     64} (one forward and one backward launch each), the forward and the
+     backward each timed beside its bound; make_recsys_train_step on each
+     model's full-width parameters (fm, dlrm-rm2 and xdeepfm at B =
+     65,536; bert4rec at B = 8,192 with 20 masked positions and 8,192
+     shared negatives), one warm-up step and 5
      timed (median ms, examples/s, model TFLOP/s, peak over the resident
      parameters, losses; the first BCE loss within 0.05 of ln 2, every
      parameter moved), one profiled; fm through
@@ -289,9 +291,10 @@ QUANT_MODES = ("sq8", "pq", "pq4", "opq-pq", "opq-pq4")
 #: sums in another order change a few graph edges)
 SMALL_N, SMALL_RECALL_GAP = 20_000, 0.02
 #: phase 5: fm_interaction shapes besides the two serve cells (a D that is
-#: not a power of two, runs of fewer than 32 examples a block, an odd span
-#: without float4 loads, an example too large to stage)
-FM_ODD_SHAPES = ((7, 5, 3), (77, 100, 7), (50, 233, 3), (3, 2000, 9))
+#: not a power of two, small batches read directly, an example too large to
+#: stage, a staged batch whose last run is partial, a D past a warp staged)
+FM_ODD_SHAPES = ((7, 5, 3), (77, 100, 7), (50, 233, 3), (3, 2000, 9), (65541, 39, 10),
+                 (40000, 7, 33))
 #: the retrieval head's k (launch/build.py:310), the cut vocabulary and
 #: item count of the card-against-CPU check, and the retrieval tolerance:
 #: sq-dists rtol 1e-5, atol 1e-6, ids equal except at near-ties
@@ -1046,7 +1049,8 @@ def quant_match_recall(exact, ds, mode: str) -> dict:
 
 
 #: the port's kernels by the name their CUDA symbol carries
-OUR_KERNELS = ("gather_auto_kernel", "fused_auto_kernel", "adc_scan", "fm_interaction_kernel")
+OUR_KERNELS = ("gather_auto_kernel", "fused_auto_kernel", "adc_scan", "fm_interaction_kernel",
+               "fm_interaction_bwd_kernel")
 
 
 def profile_call(label: str, fn, warmup: bool = True) -> dict:
@@ -3561,23 +3565,46 @@ def check_train_small(dev, spec, cut: dict, seed: int) -> dict:
 
 
 
+class _NoKernel(torch.autograd.Function):
+    """(B, F, D) → (B,) with a backward, launching no kernel either way:
+    what autograd itself costs the host around fm_interaction."""
+
+    @staticmethod
+    def forward(ctx, e):
+        ctx.shape = e.shape
+        return e.new_empty(e.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[:, None, None].expand(ctx.shape)
+
+
 def check_fm_gradient(dev, cfg, params, seed: int) -> dict:
     """Phase 5: fm_interaction at the training shape (train_batch B, the fm
-    widths) on rows gathered from ``params``: the forward bit for bit
-    against its plain version; the autograd ``Function``'s gradient on the
-    card against the CPU's bit for bit there and at FM_GRAD_SHAPES (the
-    same plain ops in the same order on both; within 1e-6·max|cpu| is
-    reported, not accepted, as a fallback). Times the forward beside its
-    bound, and the forward and backward together beside theirs."""
+    widths) on rows gathered from ``params``. The forward kernel bit for
+    bit against its plain version, rows 0 and B-1 alone equal to theirs in
+    the batch. The card's gradient is the backward kernel
+    (``fm_interaction_bwd``, the autograd ``Function``'s backward), held
+    to the CPU's plain ops (``fm_interaction_bwd_ref``) bit for bit there
+    and at FM_GRAD_SHAPES, one forward and one backward launch a gradient
+    call, rows 0 and B-1 alone equal to theirs. Times the forward and the
+    backward alone (event ms, device ms, plain ms) beside their bounds,
+    the two together through autograd (event ms and, captured in a CUDA
+    graph, device ms), and autograd around a Function with no kernel."""
     from repro_torch.configs.fm import SPEC
-    from repro_torch.kernels.fm_interaction.ops import fm_interaction, fm_interaction_ref
+    from repro_torch.kernels.fm_interaction.ops import (
+        fm_interaction, fm_interaction_bwd, fm_interaction_bwd_ref, fm_interaction_ref,
+    )
     from repro_torch.models.recsys import embedding_lookup
 
     b, f, d = SPEC.cell("train_batch").global_batch, cfg.n_sparse, cfg.embed_dim
     rng = np.random.default_rng(seed + 8)
     ids = rng.integers(0, cfg.vocab_per_field, (b, f), dtype=np.int32)
     emb = embedding_lookup(params["tables"], torch.from_numpy(ids).to(dev))
-    fwd_bitwise = bool(torch.equal(fm_interaction(emb), fm_interaction_ref(emb)))
+    fwd = fm_interaction(emb)
+    fwd_bitwise = bool(torch.equal(fwd, fm_interaction_ref(emb)))
+    invariant = all(bool(torch.equal(fm_interaction(emb[r:r + 1].contiguous())[0], fwd[r]))
+                    for r in (0, b - 1))
 
     def grad(e, g):
         x = e.detach().requires_grad_(True)
@@ -3588,39 +3615,73 @@ def check_fm_gradient(dev, cfg, params, seed: int) -> dict:
     for shape in FM_GRAD_SHAPES:
         e = torch.randn(shape, generator=g).mul_(0.3)
         cases.append((f"B,F,D={shape}", e.to(dev), torch.randn(shape[0], generator=g).to(dev)))
-    bitwise, max_err = True, 0.0
+    max_err = 0.0
     for tag, e, up in cases:
-        got, want = grad(e, up).cpu(), grad(e.cpu(), up.cpu())
+        n0, m0 = fm_interaction.launches, fm_interaction_bwd.launches
+        got = grad(e, up)
+        torch.cuda.synchronize()
+        counts = (fm_interaction.launches - n0, fm_interaction_bwd.launches - m0)
+        if counts != (1, 1):
+            raise SystemExit(f"fm_interaction gradient {tag}: {counts} forward and backward "
+                             "launches, not one each")
+        got, want = got.cpu(), grad(e.cpu(), up.cpu())
         err = float((got.double() - want.double()).abs().max()) if want.numel() else 0.0
-        eq = bool(torch.equal(got, want))
-        bitwise &= eq
         max_err = max(max_err, err)
-        if not eq:
-            log(f"  fm_interaction gradient {tag}: card against CPU max|err| {err:.3e}, not bitwise")
-            if err > 1e-6 * float(want.abs().max()):
-                raise SystemExit(f"fm_interaction gradient {tag}: the card differs from the CPU "
-                                 f"by {err:.3e}")
-    if not fwd_bitwise:
-        raise SystemExit("fm_interaction at the training shape is not bitwise equal to its "
-                         "plain version")
+        if not torch.equal(got, want):
+            raise SystemExit(f"fm_interaction gradient {tag}: the backward kernel differs from "
+                             f"the CPU's plain gradient by {err:.3e}")
+    if not fwd_bitwise or not invariant:
+        raise SystemExit(f"fm_interaction at the training shape: bitwise {fwd_bitwise}, rows "
+                         f"alone equal {invariant}")
     up = cases[0][2]
+    full = fm_interaction_bwd(emb, up)
+    bwd_invariant = all(bool(torch.equal(fm_interaction_bwd(emb[r:r + 1].contiguous(),
+                                                            up[r:r + 1].contiguous())[0], full[r]))
+                        for r in (0, b - 1))
+    if not bwd_invariant:
+        raise SystemExit("fm_interaction_bwd: a row's gradient alone differs from the batch's")
+    del full
     x = emb.detach().requires_grad_(True)
     ms = cuda_ms(lambda: fm_interaction(emb))
     dev_ms = device_ms(lambda: fm_interaction(emb))
     plain_ms = cuda_ms(lambda: fm_interaction_ref(emb), reps=5)
+    bwd_ms = cuda_ms(lambda: fm_interaction_bwd(emb, up))
+    bwd_dev_ms = device_ms(lambda: fm_interaction_bwd(emb, up))
+    bwd_plain_ms = cuda_ms(lambda: fm_interaction_bwd_ref(emb, up), reps=5)
     fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(fm_interaction(x), x, up))
+    fwd_bwd_dev_ms = device_ms(lambda: torch.autograd.grad(fm_interaction(x), x, up))
+    # autograd's own round trip through a Function that launches nothing:
+    # the host time under the event ms above that no kernel can remove
+    floor_ms = cuda_ms(lambda: torch.autograd.grad(_NoKernel.apply(x), x, up))
     bound_ms, bound_by = bound(b * f * d * 4 + b * 4, b * (3 * f * d + 3 * d + 1))
-    # the backward reads emb and the upstream gradient and writes (B, F, D)
-    bwd_bound_ms, _ = bound(2 * b * f * d * 4 + b * 4, 3 * b * f * d)
+    # the backward reads emb and g once and writes (B, F, D) once; a sum,
+    # a difference and a product an element
+    bwd_bound_ms, bwd_bound_by = bound(2 * b * f * d * 4 + b * 4, 3 * b * f * d)
+    backward = dict(
+        shape=f"B={b} F={f} D={d} (train_batch)", max_abs_err=max_err, worst_err_over_tol=0.0,
+        bitwise_batch_invariant=True, ms=bwd_ms, device_ms=bwd_dev_ms, plain_ms=bwd_plain_ms,
+        bound_ms=bwd_bound_ms, bound_by=bwd_bound_by,
+        # no single PyTorch call computes g·(Σ_f e − e): a sum, a
+        # difference and a product, each its own op
+        library_ms=None, grad_bitwise=True, grad_cases=len(cases),
+        gradient_of="src/repro/kernels/fm_interaction/ref.py:14 fm_interaction_ref (the "
+                    "reference differentiates it with XLA; its TPU kernel has no backward)")
     out = dict(shape=f"B={b} F={f} D={d} (train_batch)", ms=ms, device_ms=dev_ms,
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, forward_bitwise=True,
-               fwd_bwd_ms=fwd_bwd_ms, fwd_bwd_bound_ms=bound_ms + bwd_bound_ms,
-               grad_bitwise=bitwise, grad_max_abs_err=max_err, grad_cases=len(cases))
-    log(f"  fm_interaction train_batch B={b} F={f} D={d}: forward bitwise {fwd_bitwise}; kernel "
-        f"{ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}); forward + backward {fwd_bwd_ms:.4f} ms (bound "
-        f"{bound_ms + bwd_bound_ms:.4f}); gradient card against CPU bitwise {bitwise} over "
-        f"{len(cases)} shapes (max|err| {max_err:.3e})")
+               backward=backward, fwd_bwd_ms=fwd_bwd_ms, fwd_bwd_device_ms=fwd_bwd_dev_ms,
+               autograd_floor_ms=floor_ms,
+               fwd_bwd_bound_ms=bound_ms + bwd_bound_ms, grad_bitwise=True,
+               grad_max_abs_err=max_err, grad_cases=len(cases))
+    log(f"  fm_interaction train_batch B={b} F={f} D={d}: forward bitwise {fwd_bitwise}, rows "
+        f"alone equal; kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
+    log(f"  fm_interaction_bwd train_batch: the backward kernel's gradient equals the CPU's "
+        f"plain ops bit for bit over {len(cases)} shapes, one forward and one backward launch "
+        f"each; kernel {bwd_ms:.4f} ms (device {bwd_dev_ms:.4f} ms), plain {bwd_plain_ms:.4f} "
+        f"ms, bound {bwd_bound_ms:.4f} ms ({bwd_bound_by}); forward + backward through autograd "
+        f"{fwd_bwd_ms:.4f} ms (device {fwd_bwd_dev_ms:.4f} ms; bound "
+        f"{bound_ms + bwd_bound_ms:.4f}; autograd through a Function with no kernel "
+        f"{floor_ms:.4f} ms)")
     del emb, x
     return out
 
@@ -4880,6 +4941,11 @@ def run_sharded_dryrun_path(dev, seed: int) -> dict:
     out["cells"] = {}
     for arch, shape, overrides in DRY_CELLS:
         out["cells"][f"{arch}|{shape}"] = dry_cell_on_card(dev, arch, shape, overrides, seed)
+    # fm's backward is a kernel on the card and one (B, F, D) tensor on meta
+    ratio = out["cells"]["fm|train_batch"]["peak_over_estimate"]
+    if not 0.95 <= ratio <= 1.05:
+        raise SystemExit(f"fm train_batch: the card's peak is {ratio:.3f} of the dry run's "
+                         "per_device_total, not within 5%")
     out["ring_matmul"] = check_ring_matmuls(dev, seed)
     out["ring_aggregate"] = check_ring_aggregate(dev, seed)
     out["fields"] = check_sharding_fields(dev, seed)
@@ -4906,7 +4972,7 @@ def main(argv=None) -> int:
     from repro_torch.api import Engine, SearchParams
     from repro_torch.kernels import build
     from repro_torch.kernels.adc_scan.ops import adc_scan4_scores, adc_scan_scores
-    from repro_torch.kernels.fm_interaction.ops import fm_interaction
+    from repro_torch.kernels.fm_interaction.ops import fm_interaction, fm_interaction_bwd
     from repro_torch.kernels.fused_auto.ops import fused_auto
     from repro_torch.kernels.gather_auto.ops import gather_auto
 
@@ -4948,7 +5014,7 @@ def main(argv=None) -> int:
     log("[4] main path: Engine.build + Engine.search (graph, brute), exact then quantized")
     wrappers = {"gather_auto": gather_auto, "fused_auto": fused_auto,
                 "adc_scan": adc_scan_scores, "adc_scan4": adc_scan4_scores,
-                "fm_interaction": fm_interaction}
+                "fm_interaction": fm_interaction, "fm_interaction_bwd": fm_interaction_bwd}
 
     def drive(path, kernels, *args):
         for w in wrappers.values():
@@ -5064,19 +5130,21 @@ def main(argv=None) -> int:
 
     log("[5] recsys training: fm at full width")
     kern["fm_interaction"]["train_batch"] = check_fm_gradient(dev, fm_cfg, fm_params, args.seed)
+    kern["fm_interaction_bwd"] = kern["fm_interaction"]["train_batch"]["backward"]
     train_out = {}
     train_out["fm"], fm_train_launches = drive(
-        run_train_path, ("fm_interaction",), dev, FM_SPEC, fm_cfg, fm_params, args.seed)
+        run_train_path, ("fm_interaction", "fm_interaction_bwd"), dev, FM_SPEC, fm_cfg,
+        fm_params, args.seed)
     del fm_params
     gc.collect()
     torch.cuda.empty_cache()
     train_out["fm_launch"], launch_train_launches = drive(
-        run_launch_train, ("fm_interaction",), dev)
+        run_launch_train, ("fm_interaction", "fm_interaction_bwd"), dev)
     train_out["fm"]["cut_vocab"] = check_train_small(dev, FM_SPEC, {"vocab_per_field": CUT_VOCAB},
                                                      args.seed)
     train_out["loop"] = check_train_loop(dev, args.seed)
     train_out["train_retrieval"], retrieval_train_launches = drive(
-        run_train_retrieval, ("fm_interaction", "fused_auto"), dev)
+        run_train_retrieval, ("fm_interaction", "fm_interaction_bwd", "fused_auto"), dev)
     gc.collect()
     torch.cuda.empty_cache()
     # the other recsys models, one at a time, each freed before the next
@@ -5116,7 +5184,8 @@ def main(argv=None) -> int:
     log(f"  GNN step: {gnn_out['step_s']:.2f} s")
     log("[5] sharded and dry run: every cell on meta tensors, five cells against the card, "
         "the ring functions and the sharding fields")
-    dry_out, dry_launches = drive(run_sharded_dryrun_path, ("fm_interaction", "fused_auto"),
+    dry_out, dry_launches = drive(run_sharded_dryrun_path,
+                                  ("fm_interaction", "fm_interaction_bwd", "fused_auto"),
                                   dev, args.seed)
     log(f"  sharded and dry-run step: {dry_out['step_s']:.2f} s")
     train_launches = {k: fm_train_launches[k] + launch_train_launches[k]
@@ -5143,6 +5212,9 @@ def main(argv=None) -> int:
                       "src/repro/kernels/adc_scan/adc_scan.py:160"),
         "fm_interaction": ("src/repro_torch/kernels/csrc/fm_interaction.cu",
                            "src/repro/kernels/fm_interaction/fm_interaction.py:34"),
+        # the gradient of the same function (``gradient_of`` in its entry)
+        "fm_interaction_bwd": ("src/repro_torch/kernels/csrc/fm_interaction.cu",
+                               "src/repro/kernels/fm_interaction/fm_interaction.py:34"),
     }
     kern["fused_auto"]["retrieval"] = kern.pop("fused_auto_retrieval")
     kern["fused_auto"]["retrieval_m64"] = m64
@@ -5163,7 +5235,8 @@ def main(argv=None) -> int:
                                        "fused_auto_rows_equal_single_calls", "l2_device_ms",
                                        "l2_bound_ms", "every_pair_from_memory_ms",
                                        "lookup_ceiling_ms",
-                                       "descent_block", "narrow_block", "wide")
+                                       "descent_block", "narrow_block", "wide",
+                                       "gradient_of", "grad_cases")
                 if k in kern[name]},
          **({"partition_probe": kern["partition_probe"][name]}
             if name in kern["partition_probe"] else {}),

@@ -8,7 +8,8 @@ unchanged kernel is never rebuilt and a changed one never loads stale.
 ``build_all`` starts one ``nvcc`` per source at once. A failed build
 raises: nothing falls back to the plain versions. A launcher lives in
 ``<name>.cu`` unless ``SOURCES`` names another file (``adc_scan4`` shares
-``adc_scan.cu`` with ``adc_scan``: one kernel template, two launchers).
+``adc_scan.cu`` with ``adc_scan``: one kernel template, two launchers;
+``fm_interaction_bwd`` shares ``fm_interaction.cu``).
 """
 from __future__ import annotations
 
@@ -38,11 +39,13 @@ SIGNATURES = {
     # lut, codes, qlo, qhi, mask, xa, out, B, N, S, K, L, inv_alpha, mode, stream
     "adc_scan": (P, P, P, P, P, P, P, I, I, I, I, I, F, I, P),
     "adc_scan4": (P, P, P, P, P, P, P, I, I, I, I, I, F, I, P),
-    # emb, out, B, F, D, stream
-    "fm_interaction": (P, P, I, I, I, P),
+    # emb, out, B, F, D, staged, E, grid, stages, threads, lanes, smem, stream
+    "fm_interaction": (P, P, I, I, I, I, I, I, I, I, I, I, P),
+    # emb, g, grad, B, F, D, staged, E, grid, stages, threads, lanes, smem, stream
+    "fm_interaction_bwd": (P, P, P, I, I, I, I, I, I, I, I, I, I, P),
 }
 #: the source file stem of each launcher that does not live in <name>.cu.
-SOURCES = {"adc_scan4": "adc_scan"}
+SOURCES = {"adc_scan4": "adc_scan", "fm_interaction_bwd": "fm_interaction"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

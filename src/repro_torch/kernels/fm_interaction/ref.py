@@ -20,8 +20,7 @@ import torch
 
 def field_sum(e: torch.Tensor) -> torch.Tensor:
     """(B, D) Σ_f e_fd of (B, F, D), over f = 0 … F−1 from +0, one rounded
-    add a field. The backward of ``ops.fm_interaction`` sums in this order
-    too."""
+    add a field. ``fm_interaction_bwd_ref`` sums in this order too."""
     s = torch.zeros((e.shape[0], e.shape[2]), dtype=e.dtype, device=e.device)
     for i in range(e.shape[1]):
         s = s + e[:, i, :]
@@ -38,6 +37,13 @@ def fm_interaction_ref(emb: torch.Tensor) -> torch.Tensor:
     for j in range(d):
         acc = acc + t[:, j]
     return 0.5 * acc
+
+
+def fm_interaction_bwd_ref(emb: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """(B, F, D) gradient of Σ_b g_b·second_order(E)_b: g_b·(s_bd − e_bfd),
+    with ``s`` summed as ``field_sum`` sums it, then the difference and the
+    product each rounded (the CUDA backward repeats these steps)."""
+    return g[:, None, None] * (field_sum(emb)[:, None, :] - emb)
 
 
 def fm_interaction_pairwise_ref(emb: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,8 @@ dlrm-rm2, xdeepfm and bert4rec steps at full width with a cut vocabulary
 (|Δ| ≤ 1e-5·max|cpu| under FP32, 0.03·max|cpu| under MIXED); so must a
 train step's loss and gradients for all four kinds, and ``apply_updates``
 on identical gradients within 1e-6·max|cpu|. fm_interaction's gradient on
-the card equals the CPU's bit for bit, and fm's tables train through it
+the card (its backward kernel) equals the CPU's plain gradient bit for
+bit, both kernels replay from a CUDA graph, and fm's tables train through it
 (a regression test for a gradient the kernel's result would drop). A serve_loop
 trace on the card returns, for every request, what its query returns
 searched alone, bit for bit, on both backends. A merge of the mutable
@@ -46,7 +47,9 @@ from repro_torch.data.synthetic import make_hybrid_dataset  # noqa: E402
 from repro_torch.kernels.adc_scan.ops import (  # noqa: E402
     adc_scan4_ref, adc_scan4_scores, adc_scan_ref, adc_scan_scores,
 )
-from repro_torch.kernels.fm_interaction.ops import fm_interaction, fm_interaction_ref  # noqa: E402
+from repro_torch.kernels.fm_interaction.ops import (  # noqa: E402
+    fm_interaction, fm_interaction_bwd, fm_interaction_bwd_ref, fm_interaction_ref, plan_for,
+)
 from repro_torch.kernels.fused_auto.ops import MAX_ATTRS, fused_auto, fused_auto_ref  # noqa: E402
 from repro_torch.kernels.gather_auto.ops import gather_auto, gather_auto_ref  # noqa: E402
 from repro_torch.kernels.gather_auto.ref import penalty_sa  # noqa: E402
@@ -349,11 +352,13 @@ def test_quantized_search_on_card_equals_cpu_on_integer_data(cuda_dev):
             assert int(ra.n_hops) == int(rb.n_hops)
 
 
-#: (B, F, D): serve_p99 and serve_bulk at the fm widths; odd shapes, a run
-#: of fewer than 32 examples a block (F·D = 700), an odd span (no float4
-#: loads, F·D = 699) and an example too large to stage (read from memory)
+#: (B, F, D): serve_p99 and serve_bulk at the fm widths; odd shapes, an
+#: example too large to stage (read from memory); B around a warp's and a
+#: block's edges; staged batches with a partial last run, a D past a warp
+#: and a D of 64
 FM_SHAPES = [(512, 39, 10), (262144, 39, 10), (7, 5, 3), (1000, 3, 5), (77, 100, 7),
-             (50, 233, 3), (3, 2000, 9)]
+             (50, 233, 3), (3, 2000, 9), (1, 39, 10), (3, 39, 10), (511, 39, 10),
+             (513, 39, 10), (65541, 39, 10), (100003, 7, 5), (40000, 7, 33), (30000, 5, 64)]
 
 
 @pytest.mark.parametrize("shape", FM_SHAPES)
@@ -372,6 +377,19 @@ def test_fm_interaction_bitwise_equal_and_batch_invariant(cuda_dev, shape):
     shifted = buf[1:].view(shape)
     shifted.copy_(e)
     assert torch.equal(fm_interaction(shifted), got)
+
+
+def test_fm_interaction_plan_on_the_card(cuda_dev):
+    """The card's SM count reaches the plan: serve_p99 covers the SMs on
+    the direct path; train_batch and serve_bulk run the ring, one grid of
+    resident blocks; an offset base reads directly."""
+    sms = torch.cuda.get_device_properties(cuda_dev).multi_processor_count
+    small = plan_for(torch.empty(512, 39, 10, device=cuda_dev))
+    assert small.path == "direct" and small.grid >= sms
+    for b in (65536, 262144):
+        assert plan_for(torch.empty(b, 39, 10, device=cuda_dev)).path == "staged"
+    buf = torch.empty(65536 * 390 + 1, device=cuda_dev)
+    assert plan_for(buf[1:].view(65536, 39, 10)).path == "direct"
 
 
 @pytest.mark.parametrize("mode", ["auto", "l2"])
@@ -527,10 +545,10 @@ FM_GRAD_SHAPES = [(65536, 39, 10)] + [(b, f, d) for b in (1, 255, 257) for f in 
 
 @pytest.mark.parametrize("shape", FM_GRAD_SHAPES, ids=["x".join(map(str, s)) for s in FM_GRAD_SHAPES])
 def test_fm_interaction_gradient_on_card_equals_cpu(cuda_dev, shape):
-    """The autograd ``Function`` on the card: the forward is the kernel
-    (one launch, equal to the plain version bit for bit) and the gradient
-    under a random upstream equals the CPU's bit for bit (the same plain
-    ops in the same order on both devices)."""
+    """The autograd ``Function`` on the card: one forward and one backward
+    launch; the forward equals the plain version bit for bit and the
+    backward kernel's gradient under a random upstream equals the CPU's
+    plain gradient bit for bit (the same steps in the same order)."""
     g = torch.Generator().manual_seed(sum(shape))
     e = torch.randn(shape, generator=g) * 0.3
     up = torch.randn(shape[0], generator=g)
@@ -540,12 +558,104 @@ def test_fm_interaction_gradient_on_card_equals_cpu(cuda_dev, shape):
         out = fm_interaction(x)
         return out.detach(), torch.autograd.grad(out, x, up)[0]
 
-    n0 = fm_interaction.launches
+    n0, m0 = fm_interaction.launches, fm_interaction_bwd.launches
     got_out, got_grad = run(e.to(cuda_dev), up.to(cuda_dev))
     torch.cuda.synchronize()
-    assert fm_interaction.launches == n0 + 1
+    assert (fm_interaction.launches, fm_interaction_bwd.launches) == (n0 + 1, m0 + 1)
     assert torch.equal(got_out, fm_interaction_ref(e.to(cuda_dev)))
     assert torch.equal(got_grad.cpu(), run(e, up)[1])
+
+
+#: the backward kernel beyond FM_GRAD_SHAPES: D past a warp and a D of 64
+#: on the ring, a partial last run, an example larger than a stage, and B = 0
+FM_BWD_SHAPES = [(40000, 7, 33), (30000, 5, 64), (65541, 39, 10), (257, 7, 33), (600, 1000, 16),
+                 (3, 2000, 9), (0, 39, 10)]
+
+
+@pytest.mark.parametrize("shape", FM_BWD_SHAPES,
+                         ids=["x".join(map(str, s)) for s in FM_BWD_SHAPES])
+def test_fm_interaction_backward_kernel_equals_cpu(cuda_dev, shape):
+    """The backward kernel's gradient equals the CPU's plain gradient bit
+    for bit, on an aligned tensor and on a contiguous view 4 bytes off
+    (the direct path); one launch a call, none for B = 0."""
+    g = torch.Generator().manual_seed(sum(shape) + 1)
+    e = torch.randn(shape, generator=g) * 0.3
+    up = torch.randn(shape[0], generator=g)
+    want = fm_interaction_bwd_ref(e, up)
+    n = e.numel()
+    buf = torch.empty(n + 1, device=cuda_dev)
+    for card in (e.to(cuda_dev), buf[1:1 + n].view(shape)):
+        card.copy_(e)
+        m0 = fm_interaction_bwd.launches
+        got = fm_interaction_bwd(card, up.to(cuda_dev))
+        torch.cuda.synchronize()
+        assert fm_interaction_bwd.launches == m0 + (1 if shape[0] else 0)
+        assert got.shape == e.shape and torch.equal(got.cpu(), want)
+
+
+def test_fm_interaction_forward_and_backward_replay_from_a_cuda_graph(cuda_dev):
+    """Both kernels, staged (train_batch) and direct (serve_p99), captured
+    in one CUDA graph after a warm-up and replayed, equal eager calls."""
+    g = torch.Generator(device=cuda_dev).manual_seed(3)
+    cases = [(torch.randn(b, 39, 10, generator=g, device=cuda_dev) * 0.3,
+              torch.randn(b, generator=g, device=cuda_dev)) for b in (65536, 512)]
+    eager = [(fm_interaction(e), fm_interaction_bwd(e, up)) for e, up in cases]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for e, up in cases:
+            fm_interaction(e), fm_interaction_bwd(e, up)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [(fm_interaction(e), fm_interaction_bwd(e, up)) for e, up in cases]
+    for (e, up), (o, gr) in zip(cases, outs):
+        o.zero_(), gr.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for (o, gr), (wo, wg) in zip(outs, eager):
+        assert torch.equal(o, wo) and torch.equal(gr, wg)
+
+
+#: a fresh process whose first fm_interaction calls, forward and backward
+#: on the ring (over 48 KB of shared memory: the launcher's one-time opt-in
+#: runs) and direct, happen inside a CUDA graph capture
+FM_FIRST_CALLS_IN_CAPTURE = """
+import torch
+from repro_torch.kernels.fm_interaction.ops import (
+    fm_interaction, fm_interaction_bwd, fm_interaction_bwd_ref, fm_interaction_ref, plan_for)
+dev = torch.device("cuda")
+g = torch.Generator(device=dev).manual_seed(5)
+cases = [(torch.randn(b, 39, 10, generator=g, device=dev) * 0.3,
+          torch.randn(b, generator=g, device=dev)) for b in (65536, 512)]
+assert plan_for(cases[0][0]).smem > 48 * 1024 and plan_for(cases[0][0], True).smem > 48 * 1024
+assert fm_interaction.launches == fm_interaction_bwd.launches == 0
+graph = torch.cuda.CUDAGraph()
+with torch.cuda.graph(graph):
+    outs = [(fm_interaction(e), fm_interaction_bwd(e, up)) for e, up in cases]
+graph.replay()
+torch.cuda.synchronize()
+for (e, up), (o, gr) in zip(cases, outs):
+    assert torch.equal(o, fm_interaction_ref(e)) and torch.equal(gr, fm_interaction_bwd_ref(e, up))
+print("replayed", fm_interaction.launches, fm_interaction_bwd.launches)
+"""
+
+
+def test_fm_interaction_first_calls_inside_a_cuda_graph_capture(cuda_dev):
+    """The launcher opts the staged kernels in to their shared memory on
+    its first call; in a process whose first calls are captured, that
+    opt-in runs under the capture, and the replay still equals the plain
+    versions bit for bit."""
+    import os
+    import subprocess
+    import sys
+
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    done = subprocess.run([sys.executable, "-c", FM_FIRST_CALLS_IN_CAPTURE],
+                          env=dict(os.environ, PYTHONPATH=src), capture_output=True, text=True,
+                          timeout=300)
+    assert done.returncode == 0, done.stderr
+    assert done.stdout.split() == ["replayed", "2", "2"]
 
 
 def test_fm_train_step_on_card_trains_the_tables(cuda_dev):
@@ -562,10 +672,10 @@ def test_fm_train_step_on_card_trains_the_tables(cuda_dev):
     cpu = recsys.init_params(cfg, seed=0, device="cpu")
     card = {k: v.to(cuda_dev) for k, v in cpu.items()}
     batch = make_batch_fn(fm.SPEC, cfg, 512, 64, cuda_dev)(0)
-    n0 = fm_interaction.launches
+    n0, m0 = fm_interaction.launches, fm_interaction_bwd.launches
     _, grads = loss_and_grads(functools.partial(recsys.loss_fn, cfg), card, batch)
     torch.cuda.synchronize()
-    assert fm_interaction.launches == n0 + 1
+    assert (fm_interaction.launches, fm_interaction_bwd.launches) == (n0 + 1, m0 + 1)
     gt = grads["tables"]
     assert gt is not None and gt.shape == card["tables"].shape and bool(gt.abs().sum() > 0)
     _, want = loss_and_grads(functools.partial(recsys.loss_fn, cfg), cpu,
