@@ -1804,7 +1804,6 @@ def run_mutable_path(dev, ds, base: list, seed: int, workdir: str):
     from repro_torch.kernels.fused_auto.ops import fused_auto
     from repro_torch.kernels.gather_auto.ops import gather_auto
     from repro_torch.mutable import CompactionPolicy, MutableEngine
-    from repro_torch.obs.trace import Span
     from repro_torch.serve import (
         Completed, Delete, Request, TenantPolicy, ThreadedServer, Upsert, WriteAck, serve_loop,
     )
@@ -1952,30 +1951,25 @@ def run_mutable_path(dev, ds, base: list, seed: int, workdir: str):
     log(f"  WAL replay over the base: {n_ops} ops in {replay_s:.3f} s; searches equal the "
         f"original's bit for bit on both backends, four kinds")
 
-    # the merge, synchronous, timed by part
+    # the merge, synchronous
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     mem_before = torch.cuda.memory_allocated()
     g0, f0 = gather_auto.launches, fused_auto.launches
-    root = Span("merge")
-    with root:
-        stats = m.merge()
+    stats = m.merge()
     torch.cuda.synchronize()
     link_launches = {"gather_auto": gather_auto.launches - g0,
                      "fused_auto": fused_auto.launches - f0}
-    split = {c.name: c.duration * 1e3 for c in root.children}
     gc.collect()
     torch.cuda.empty_cache()
     grown = torch.cuda.memory_allocated() - mem_before
     linked = np.concatenate([inserted, over])
     deg = in_degrees(m.index.graph, m.engine.n_items)
     in_share = float((deg[torch.from_numpy(linked).to(dev)] > 0).float().mean().cpu())
-    out["merge"] = dict(stats=stats, split_ms=split, launches=link_launches,
+    out["merge"] = dict(stats=stats, launches=link_launches,
                         linked_in_edge_share=in_share, memory_grown_bytes=grown,
                         old_index_bytes=index_bytes)
-    log(f"  merge: prepare {stats['prepare_ms']:.3f} ms (apply_rows {split['apply_rows']:.3f}, "
-        f"routed search {split['link_route']:.3f}, hop scoring + new-new + merge to Γ "
-        f"{split['link_hop']:.3f}, repair {split['link_repair']:.3f}), apply "
+    log(f"  merge: prepare {stats['prepare_ms']:.3f} ms, apply "
         f"{stats['apply_ms']:.3f} ms; linked {stats['linked']}, repaired {stats['repaired']}; "
         f"link_nodes launched {link_launches}; {in_share:.4f} of linked rows have an in-edge; "
         f"device memory {grown} bytes above its level before the merge once the old index "

@@ -525,18 +525,23 @@ class Engine:
         all-MATCH batch."""
         if isinstance(queries, tuple):
             queries = QueryBatch.match(*queries)
-        with obs_trace.span("plan") as sp:
-            plan = self.plan(queries, params)
-            if sp:
-                sp.set("backend", plan.backend)
-                sp.set("quant_mode", plan.quant_mode)
-                sp.set("reason", plan.reason)
-                sp.set("cost_brute", plan.cost_brute)
-                sp.set("cost_graph", plan.cost_graph)
-                if plan.backend == "partitioned":
-                    sp.set("nprobe", plan.nprobe)
-                    sp.set("sub_backend", plan.sub_backend)
-        return self.executor.run(queries, params, plan)
+        # under torch.profiler, a search with no span open is a root of its own
+        with obs_trace.profiled_root("search") as root:
+            with obs_trace.span("plan") as sp:
+                plan = self.plan(queries, params)
+                if sp:
+                    sp.set("backend", plan.backend)
+                    sp.set("quant_mode", plan.quant_mode)
+                    sp.set("reason", plan.reason)
+                    sp.set("cost_brute", plan.cost_brute)
+                    sp.set("cost_graph", plan.cost_graph)
+                    if plan.backend == "partitioned":
+                        sp.set("nprobe", plan.nprobe)
+                        sp.set("sub_backend", plan.sub_backend)
+            if root:
+                root.set("backend", plan.backend)
+                root.set("batch", queries.batch_size)
+            return self.executor.run(queries, params, plan)
 
     def _predicate_filter(
         self, res: SearchResult, queries: QueryBatch, full: bool

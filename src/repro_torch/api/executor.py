@@ -128,8 +128,10 @@ class Executor:
                 sp.set("batch", sig.batch)
         with obs_trace.span("execute") as sp:
             res = fn(queries)
-            if sp:
-                # sampled path only: wait so the span covers device time
+            if sp and not obs_trace.profiling():
+                # a sampled request without the profiler: wait so the span
+                # covers device time. Under the profiler its trace holds the
+                # device time, and these waits and reads would move it.
                 if res.ids.is_cuda:
                     torch.cuda.synchronize(res.ids.device)
                 sp.set("n_hops", int(res.n_hops))
@@ -191,7 +193,10 @@ class Executor:
                 # ONE_OF membership is exact on every backend; full predicate
                 # enforcement only under enforce_equality. The pass re-sorts
                 # so survivors keep the ascending-with-INVALID-tail invariant.
-                res = engine._predicate_filter(res, queries, enforce)
+                with obs_trace.span("filter") as sp:
+                    if sp:
+                        sp.set("rows", queries.batch_size)
+                    res = engine._predicate_filter(res, queries, enforce)
                 if res.ids.shape[1] > k:
                     res = res._replace(
                         ids=res.ids[:, :k], dists=res.dists[:, :k], sqdists=res.sqdists[:, :k],

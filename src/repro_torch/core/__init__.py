@@ -50,11 +50,3 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
-
-
-def sync_span(sp, t: torch.Tensor) -> None:
-    """On a sampled tracing span (``repro_torch.obs.trace``), wait for the
-    device that holds ``t`` so the span covers its queued work; the no-op
-    span of an untraced call waits for nothing."""
-    if sp and t.is_cuda:
-        torch.cuda.synchronize(t.device)

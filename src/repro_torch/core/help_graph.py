@@ -28,10 +28,8 @@ import torch
 from repro_torch.core import auto as auto_mod
 from repro_torch.core import graph_ops as gops
 from repro_torch.core import routing as routing_mod
-from repro_torch.core import sync_span
 from repro_torch.core.auto import MetricConfig
 from repro_torch.core.graph_ops import INF, INVALID
-from repro_torch.obs import trace as obs_trace
 
 Tensor = torch.Tensor
 
@@ -391,54 +389,49 @@ def link_nodes(
     qv, qa = features[node_dev.long()], attrs[node_dev.long()]
 
     # (1) routed candidate search, the reference's operating point
-    with obs_trace.span("link_route") as sp:
-        pool = int(min(max(4 * gamma, 64), n))
-        rcfg = routing_mod.RoutingConfig(
-            k=pool, pool_size=pool, pioneer_size=min(8, pool),
-            coarse_max_iters=16, refine_max_iters=64,
-        )
-        res = routing_mod.search(features, attrs, graph, qv, qa, metric_cfg, rcfg, seed=seed)
-        cand_ids, cand_d = res.ids, res.sqdists  # (D, pool)
-        sync_span(sp, cand_d)
+    pool = int(min(max(4 * gamma, 64), n))
+    rcfg = routing_mod.RoutingConfig(
+        k=pool, pool_size=pool, pioneer_size=min(8, pool),
+        coarse_max_iters=16, refine_max_iters=64,
+    )
+    res = routing_mod.search(features, attrs, graph, qv, qa, metric_cfg, rcfg, seed=seed)
+    cand_ids, cand_d = res.ids, res.sqdists  # (D, pool)
 
-    with obs_trace.span("link_hop"):  # ends in a host copy: no sync needed
-        # (1b) one-hop expansion: the candidates' own neighbours
-        hop_ids = gops.gather_rows(graph, cand_ids).reshape(d, -1)  # (D, pool·Γ)
-        hop_ids = hop_ids.masked_fill((cand_ids < 0).repeat_interleave(gamma, dim=1), INVALID)
-        hop_d = _score_candidates(features, attrs, node_dev, hop_ids, metric_cfg)
-        # (2) new↔new candidates
-        d_nn = auto_mod.brute_fused_sqdist(qv, qa, qv, qa, metric_cfg)  # (D, D)
-        nn_ids = node_dev[None, :].expand(d, d)
-        all_ids = torch.cat([cand_ids, hop_ids, nn_ids], dim=1)
-        all_d = torch.cat([cand_d, hop_d, d_nn], dim=1)
-        bad = (all_ids == node_dev[:, None]) | (all_ids < 0)
-        if banned.size:
-            bad |= torch.isin(all_ids, torch.from_numpy(banned.astype(np.int32)).to(dev))
-        all_d = all_d.masked_fill(bad, INF)
-        all_ids = all_ids.masked_fill(bad, INVALID)
-        # (3) each linked node's row: the Γ best candidates, deduped, ascending
-        new_rows, _, _ = gops.merge_pools(
-            torch.full((d, gamma), INVALID, dtype=torch.int32, device=dev),
-            torch.full((d, gamma), INF, dtype=torch.float32, device=dev),
-            all_ids, all_d, gamma,
-        )
-        out = graph.clone()
-        out[node_dev.long()] = new_rows
-        new_rows_np = new_rows.cpu().numpy()
+    # (1b) one-hop expansion: the candidates' own neighbours
+    hop_ids = gops.gather_rows(graph, cand_ids).reshape(d, -1)  # (D, pool·Γ)
+    hop_ids = hop_ids.masked_fill((cand_ids < 0).repeat_interleave(gamma, dim=1), INVALID)
+    hop_d = _score_candidates(features, attrs, node_dev, hop_ids, metric_cfg)
+    # (2) new↔new candidates
+    d_nn = auto_mod.brute_fused_sqdist(qv, qa, qv, qa, metric_cfg)  # (D, D)
+    nn_ids = node_dev[None, :].expand(d, d)
+    all_ids = torch.cat([cand_ids, hop_ids, nn_ids], dim=1)
+    all_d = torch.cat([cand_d, hop_d, d_nn], dim=1)
+    bad = (all_ids == node_dev[:, None]) | (all_ids < 0)
+    if banned.size:
+        bad |= torch.isin(all_ids, torch.from_numpy(banned.astype(np.int32)).to(dev))
+    all_d = all_d.masked_fill(bad, INF)
+    all_ids = all_ids.masked_fill(bad, INVALID)
+    # (3) each linked node's row: the Γ best candidates, deduped, ascending
+    new_rows, _, _ = gops.merge_pools(
+        torch.full((d, gamma), INVALID, dtype=torch.int32, device=dev),
+        torch.full((d, gamma), INF, dtype=torch.float32, device=dev),
+        all_ids, all_d, gamma,
+    )
+    out = graph.clone()
+    out[node_dev.long()] = new_rows
+    new_rows_np = new_rows.cpu().numpy()
 
     # (4) mutual-neighbour repair: existing rows carry no stored distances,
     # so each is rescored once and merged with the reverse edges offered
-    with obs_trace.span("link_repair") as sp:
-        u_ids, off = _offers(new_rows_np, node_ids)
-        if u_ids.size == 0:
-            return out, 0
-        u_dev = torch.from_numpy(u_ids).to(dev)
-        off_dev = torch.from_numpy(off).to(dev)
-        cur = out[u_dev.long()]
-        cur_d = _score_candidates(features, attrs, u_dev, cur, metric_cfg)
-        off_d = _score_candidates(features, attrs, u_dev, off_dev, metric_cfg)
-        out[u_dev.long()] = gops.merge_pools(cur, cur_d, off_dev, off_d, gamma)[0]
-        sync_span(sp, out)
+    u_ids, off = _offers(new_rows_np, node_ids)
+    if u_ids.size == 0:
+        return out, 0
+    u_dev = torch.from_numpy(u_ids).to(dev)
+    off_dev = torch.from_numpy(off).to(dev)
+    cur = out[u_dev.long()]
+    cur_d = _score_candidates(features, attrs, u_dev, cur, metric_cfg)
+    off_d = _score_candidates(features, attrs, u_dev, off_dev, metric_cfg)
+    out[u_dev.long()] = gops.merge_pools(cur, cur_d, off_dev, off_d, gamma)[0]
     return out, int(u_ids.size)
 
 

@@ -15,6 +15,13 @@ Where the reference runs ``lax.while_loop``, this module runs a Python
 loop: the stop tests (``active.any()`` in the coarse stage, "any pool entry
 unchecked" in the refine stage) each cost one device-to-host read per hop.
 
+Spans (``repro_torch.obs.trace``): ``seed`` (``init_state``), ``coarse``
+and ``refine`` (attribute ``hops``), ``hop`` around each expansion (it
+holds no device wait: its length is the host's issue of the hop),
+``stop_test`` around each loop test that reads the device (attribute
+``active``: the rows the next hop works for, read in the same single
+read), and ``emit``.
+
 Quantized traversal (``quant_mode`` ∈ sq8, pq, pq4, opq-pq, opq-pq4)
 scores candidates from codes only: sq8 codes decode after the gather,
 PQ-family codes sum the per-query ADC tables (4-bit codes unpack after the
@@ -38,6 +45,7 @@ from repro_torch.core import resolve_device, to_tensor
 from repro_torch.core.auto import MetricConfig
 from repro_torch.core.graph_ops import INF, INVALID
 from repro_torch.kernels.gather_auto.ops import gather_auto
+from repro_torch.obs import trace as obs_trace
 from repro_torch.quant import pq as pq_mod
 from repro_torch.quant import sq as sq_mod
 from repro_torch.quant.store import QUANT_MODES, is_packed_mode
@@ -283,6 +291,20 @@ def init_state(
     )
 
 
+def _rows_left(work: Tensor, sp) -> bool:
+    """A loop's stop test: whether any row of ``work`` ((B,) or (B, W)
+    bool) is still true, in one device-to-host read. On a recorded stage
+    span ``sp`` the same read takes the count of such rows, kept as the
+    ``stop_test`` span's ``active``."""
+    if not sp:
+        return bool(work.any())
+    with obs_trace.span("stop_test") as st:
+        rows = work.any(1) if work.dim() > 1 else work
+        active = int(rows.sum())
+        st.set("active", active)
+    return active > 0
+
+
 def coarse_stage(
     state: _State,
     db_v: Tensor,
@@ -299,15 +321,20 @@ def coarse_stage(
     expansion until no iteration improves P (or, with ``cfg.coarse_fixed``,
     for exactly ``coarse_max_iters`` iterations)."""
     half = max(1, graph.shape[1] // 2)
-    while state.it < cfg.coarse_max_iters and (
-        cfg.coarse_fixed or bool(state.active.any())
-    ):
-        state = _expand(
-            state, db_v, db_a, graph, qv, qa, metric_cfg, mask,
-            scope=cfg.pioneer_size, fanout=half, watch=cfg.pioneer_size,
-            use_visited=cfg.use_visited, quant=quant, quant_mode=cfg.quant_mode,
-            force_active=cfg.coarse_fixed,
-        )
+    with obs_trace.span("coarse") as sp:
+        hops0 = state.hops
+        while state.it < cfg.coarse_max_iters and (
+            cfg.coarse_fixed or _rows_left(state.active, sp)
+        ):
+            with obs_trace.span("hop"):
+                state = _expand(
+                    state, db_v, db_a, graph, qv, qa, metric_cfg, mask,
+                    scope=cfg.pioneer_size, fanout=half, watch=cfg.pioneer_size,
+                    use_visited=cfg.use_visited, quant=quant, quant_mode=cfg.quant_mode,
+                    force_active=cfg.coarse_fixed,
+                )
+        if sp:
+            sp.set("hops", state.hops - hops0)
     return state
 
 
@@ -325,15 +352,20 @@ def refine_stage(
 ) -> _State:
     """Stage 3, Greedy Refinement Routing: full pool, full fanout, until
     the pool is fully checked."""
-    state = state._replace(active=torch.ones_like(state.active), it=0)
-    while state.it < cfg.refine_max_iters and bool(
-        ((state.checked == 0) & (state.r_ids >= 0)).any()
-    ):
-        state = _expand(
-            state, db_v, db_a, graph, qv, qa, metric_cfg, mask,
-            scope=cfg.pool_size, fanout=graph.shape[1], watch=cfg.pool_size,
-            use_visited=cfg.use_visited, quant=quant, quant_mode=cfg.quant_mode,
-        )
+    with obs_trace.span("refine") as sp:
+        state = state._replace(active=torch.ones_like(state.active), it=0)
+        hops0 = state.hops
+        while state.it < cfg.refine_max_iters and _rows_left(
+            (state.checked == 0) & (state.r_ids >= 0), sp
+        ):
+            with obs_trace.span("hop"):
+                state = _expand(
+                    state, db_v, db_a, graph, qv, qa, metric_cfg, mask,
+                    scope=cfg.pool_size, fanout=graph.shape[1], watch=cfg.pool_size,
+                    use_visited=cfg.use_visited, quant=quant, quant_mode=cfg.quant_mode,
+                )
+        if sp:
+            sp.set("hops", state.hops - hops0)
     return state
 
 
@@ -352,7 +384,8 @@ def traverse_pool(
 ) -> _State:
     """Stages 1–3: seed + coarse + refine, returning the final pool state
     (sorted ascending by the traversal codec's distance)."""
-    state = init_state(db_v, db_a, qv, qa, entry_ids, metric_cfg, cfg, n_nodes, mask, quant)
+    with obs_trace.span("seed"):
+        state = init_state(db_v, db_a, qv, qa, entry_ids, metric_cfg, cfg, n_nodes, mask, quant)
     state = coarse_stage(state, db_v, db_a, graph, qv, qa, metric_cfg, cfg, mask, quant)
     return refine_stage(state, db_v, db_a, graph, qv, qa, metric_cfg, cfg, mask, quant)
 
@@ -406,16 +439,17 @@ def emit_topk(
     Either is optionally hard-filtered."""
     b = state.r_ids.shape[0]
     dev = state.r_ids.device
-    if cfg.quant_mode != "none":
-        r_ids = state.r_ids[:, : cfg.effective_rerank]
-        rd = score_exact(db_v, db_a, r_ids, qv, qa, metric_cfg, mask)
-        return _emit_reranked(rd, r_ids, db_a, qa, cfg, mask, state.evals, state.hops)
-    return _emit(
-        state.r_ids[:, : cfg.k], state.r_d[:, : cfg.k], db_a, qa, cfg, mask,
-        n_dist_evals=state.evals,
-        n_code_evals=torch.zeros((b,), dtype=torch.int32, device=dev),
-        hops=state.hops,
-    )
+    with obs_trace.span("emit"):
+        if cfg.quant_mode != "none":
+            r_ids = state.r_ids[:, : cfg.effective_rerank]
+            rd = score_exact(db_v, db_a, r_ids, qv, qa, metric_cfg, mask)
+            return _emit_reranked(rd, r_ids, db_a, qa, cfg, mask, state.evals, state.hops)
+        return _emit(
+            state.r_ids[:, : cfg.k], state.r_d[:, : cfg.k], db_a, qa, cfg, mask,
+            n_dist_evals=state.evals,
+            n_code_evals=torch.zeros((b,), dtype=torch.int32, device=dev),
+            hops=state.hops,
+        )
 
 
 def _emit_reranked(

@@ -32,9 +32,7 @@ from typing import TYPE_CHECKING, Optional, Set
 import numpy as np
 
 from repro_torch.core import help_graph as help_mod
-from repro_torch.core import sync_span
 from repro_torch.mutable.delta import DeltaSegment
-from repro_torch.obs import trace as obs_trace
 
 if TYPE_CHECKING:
     from repro_torch.mutable.engine import MutableEngine
@@ -80,14 +78,12 @@ def merge_prepare(m: "MutableEngine") -> Optional[PreparedMerge]:
     # every id with known values is materialized, deleted ones included, as
     # zombies: real (stale) values behind a tombstone can never rank
     write_ids = np.asarray(sorted(data), np.int64)
-    with obs_trace.span("apply_rows") as sp:
-        if write_ids.size:
-            feats = np.stack([data[i][0] for i in write_ids])
-            attrs = np.stack([data[i][1] for i in write_ids])
-            new_index = old_index.apply_rows(write_ids, feats, attrs)
-        else:  # a delete-only window: nothing to materialize or link
-            new_index = old_index
-        sync_span(sp, new_index.features)
+    if write_ids.size:
+        feats = np.stack([data[i][0] for i in write_ids])
+        attrs = np.stack([data[i][1] for i in write_ids])
+        new_index = old_index.apply_rows(write_ids, feats, attrs)
+    else:  # a delete-only window: nothing to materialize or link
+        new_index = old_index
     n_new = int(new_index.features.shape[0])
 
     # persistent tombstones: ids deleted in this window, ids already

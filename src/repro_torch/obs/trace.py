@@ -16,6 +16,14 @@ Design constraints, in priority order:
    N-th ``should_sample()`` call via a counter, so tests and the bench can
    force exactly which request is traced (N=1 → all, N=0 → none).
 
+Spans also record whenever ``torch.profiler`` records (``profiling()``, a
+module flag read): a span site then records even with no span open, and
+``Engine.search`` opens a root ``search`` whose finished tree is kept in
+``PROFILED`` (``profiled_traces()``). While the profiler records, every
+real span also enters a ``record_function`` of its own name, so the
+program's spans sit in the profiler's trace beside the device operations,
+on the profiler's clock.
+
 Timestamps are ``time.perf_counter()`` seconds; exporters convert.  Spans
 support *synthetic* children with explicit timing (``add``) for phases
 measured in a different clock domain (e.g. the serve loop's virtual-clock
@@ -28,9 +36,23 @@ import threading
 import time
 from typing import Dict, List, Optional
 
-__all__ = ["NOOP_SPAN", "Span", "Trace", "Tracer", "current", "span"]
+from torch.autograd import profiler as _profiler
 
-_tls = threading.local()
+__all__ = [
+    "NOOP_SPAN", "PROFILED", "Span", "Trace", "Tracer", "current", "profiled_root",
+    "profiled_traces", "profiling", "span",
+]
+
+
+class _Local(threading.local):
+    """A thread's open spans, innermost last: the class's empty tuple until
+    a span opens on the thread, so an untraced site reads it without the
+    caught ``AttributeError`` a ``getattr`` default costs."""
+
+    stack: tuple = ()
+
+
+_tls = _Local()
 
 
 class _NoopSpan:
@@ -63,32 +85,44 @@ class _NoopSpan:
 NOOP_SPAN = _NoopSpan()
 
 
+def profiling() -> bool:
+    """Whether ``torch.profiler`` records in this process: a module flag of
+    ``torch.autograd.profiler``, read without a call into C++."""
+    return _profiler._is_profiler_enabled
+
+
 def current():
     """The innermost active span on this thread, or ``NOOP_SPAN``."""
-    stack = getattr(_tls, "stack", None)
+    stack = _tls.stack
     if stack:
         return stack[-1]
     return NOOP_SPAN
 
 
 def span(name: str):
-    """Open a child of the current span (no-op when none is active).
-    This is the one-liner instrumentation entry point:
+    """Open a child of the current span; with none active, a span of its own
+    while the profiler records, else the no-op. This is the one-liner
+    instrumentation entry point:
 
         with obs_trace.span("plan") as sp:
             ...
             if sp:
                 sp.set("backend", plan.backend)
     """
-    return current().span(name)
+    stack = _tls.stack
+    if stack:
+        return stack[-1].span(name)
+    if _profiler._is_profiler_enabled:
+        return Span(name)
+    return NOOP_SPAN
 
 
 class Span:
     """A named timed interval with attributes and children.  Real spans
-    only exist on the sampled path, so clarity wins over nanosecond
-    shaving here; the hot path never constructs one."""
+    only exist on a sampled or profiled path, so clarity wins over
+    nanosecond shaving here; the untraced path never constructs one."""
 
-    __slots__ = ("name", "t0", "t1", "attrs", "children")
+    __slots__ = ("name", "t0", "t1", "attrs", "children", "_rf")
 
     def __init__(self, name: str, t0: Optional[float] = None):
         self.name = name
@@ -96,6 +130,7 @@ class Span:
         self.t1: Optional[float] = None
         self.attrs: Dict[str, object] = {}
         self.children: List["Span"] = []
+        self._rf = None  # the profiler's record of this span, while open
 
     # -- context / structure ----------------------------------------------
 
@@ -103,16 +138,22 @@ class Span:
         return True
 
     def __enter__(self) -> "Span":
-        stack = getattr(_tls, "stack", None)
-        if stack is None:
+        stack = _tls.stack
+        if not isinstance(stack, list):
             stack = _tls.stack = []
         stack.append(self)
+        if _profiler._is_profiler_enabled:
+            self._rf = _profiler.record_function(self.name)
+            self._rf.__enter__()
         return self
 
     def __exit__(self, *exc) -> None:
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+            self._rf = None
         if self.t1 is None:
             self.t1 = time.perf_counter()
-        stack = getattr(_tls, "stack", None)
+        stack = _tls.stack
         if stack and stack[-1] is self:
             stack.pop()
 
@@ -222,3 +263,39 @@ class Tracer:
     def clear(self) -> None:
         with self._lock:
             self._traces.clear()
+
+
+#: the finished roots of the searches made while the profiler recorded
+#: (``profiled_root``), oldest dropped past ``max_traces``
+PROFILED = Tracer(sample_every=1, max_traces=1024)
+
+
+class _StoredRoot:
+    """Context of a root opened under the profiler: enters its span and,
+    when it ends, keeps its trace in ``PROFILED``."""
+
+    __slots__ = ("trace",)
+
+    def __init__(self, name: str):
+        self.trace = PROFILED.start(name)
+
+    def __enter__(self) -> Span:
+        return self.trace.root.__enter__()
+
+    def __exit__(self, *exc) -> None:
+        self.trace.root.__exit__(*exc)
+        PROFILED.finish(self.trace)
+
+
+def profiled_root(name: str):
+    """A root span kept in ``PROFILED`` when it ends, where no span is open
+    on this thread and the profiler records; ``NOOP_SPAN`` otherwise (a
+    sampled request's open tree takes the spans itself)."""
+    if _tls.stack or not _profiler._is_profiler_enabled:
+        return NOOP_SPAN
+    return _StoredRoot(name)
+
+
+def profiled_traces() -> List[Trace]:
+    """The traces ``profiled_root`` kept, oldest first."""
+    return PROFILED.traces()

@@ -3,12 +3,17 @@ reference's ``repro.obs``: registry thread-safety and bounds, streaming
 histogram percentiles against numpy (within one log bucket, ≤ 26%
 relative), Prometheus text equal to the reference's for the same records,
 JSON and Chrome-trace exports, the metrics HTTP endpoint on an ephemeral
-port, and the span tree of a sampled ``serve_loop`` batch on the port's
-engine (graph backend, CPU), which sums to the end-to-end latency."""
+port, the span tree of a sampled ``serve_loop`` batch on the port's
+engine (graph backend, CPU), which sums to the end-to-end latency, and the
+spans of a search under ``torch.profiler``: a ``search`` root kept in
+``profiled_traces()`` with its stages, hops and stop tests, the same names
+nested alike in the profiler's events, and nothing kept or allocated
+without a profiler."""
 import json
 import re
 import sys
 import threading
+import tracemalloc
 import urllib.error
 import urllib.request
 
@@ -18,9 +23,10 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from _torch_data import HELP_KW, dataset  # noqa: E402
+from _torch_data import HELP_KW, dataset, predicate_batches  # noqa: E402
 from repro import obs as jobs  # noqa: E402
 from repro_torch import obs as tobs  # noqa: E402
+from repro_torch import api as tapi  # noqa: E402
 from repro_torch.api import MATCH, Engine, Query, SearchParams  # noqa: E402
 from repro_torch.core.help_graph import HelpConfig  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
@@ -246,3 +252,162 @@ def test_threaded_server_metrics_endpoint_counts_completions(case):
     assert completed == 12
     assert parse_prometheus(text)["serve_completed"] == completed
     assert snap["providers"]["serve_completed"] == completed
+
+
+# ---------------------------------------------------------------------------
+# Spans under torch.profiler
+# ---------------------------------------------------------------------------
+
+#: the spans of a graph search with a ONE_OF post-filter, each with the span
+#: it sits in
+PARENT = {"plan": "search", "compile": "search", "execute": "search", "seed": "execute",
+          "coarse": "execute", "refine": "execute", "emit": "execute", "filter": "execute",
+          "hop": ("coarse", "refine"), "stop_test": ("coarse", "refine")}
+
+
+def one_of_batch(qf, qa):
+    return predicate_batches(qf[:24], qa[:24], tapi.query)["one_of"]
+
+
+def named(span, name):
+    out = [span] if span.name == name else []
+    for c in span.children:
+        out.extend(named(c, name))
+    return out
+
+
+@pytest.fixture
+def profiled_search(case):
+    """One graph search of a ONE_OF batch under the profiler (CPU events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng, qf, qa = case
+    qb = one_of_batch(qf, qa)
+    eng.search(qb, PARAMS)  # plan compiled outside the profile
+    obs_trace.PROFILED.clear()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = eng.search(qb, PARAMS)
+    kept = obs_trace.profiled_traces()
+    obs_trace.PROFILED.clear()
+    return res, kept, prof
+
+
+def test_profiled_search_keeps_one_search_root_with_every_stage(profiled_search):
+    res, kept, _ = profiled_search
+    assert len(kept) == 1
+    root = kept[0].root
+    assert root.name == "search" and root.attrs == {"backend": "graph", "batch": 24}
+    for name, parent in PARENT.items():
+        spans = named(root, name)
+        assert spans, name
+        parents = parent if isinstance(parent, tuple) else (parent,)
+        assert all(any(s in named(root, p)[0].children for p in parents) for s in spans), name
+    hops = int(res.n_hops)
+    assert len(named(root, "hop")) == hops > 0
+    assert hops <= len(named(root, "stop_test")) <= hops + 2
+    for stage in ("coarse", "refine"):
+        sp = named(root, stage)[0]
+        assert sp.attrs["hops"] == len(named(sp, "hop"))
+    tests = named(root, "stop_test")
+    assert all(0 <= t.attrs["active"] <= 24 for t in tests)
+    assert tests[0].attrs["active"] == 24 and tests[-1].attrs["active"] == 0
+    assert named(root, "filter")[0].attrs["rows"] == 24
+    assert root.duration >= named(root, "execute")[0].duration > 0
+
+
+def test_profiler_events_hold_the_spans_nested_as_the_tree(profiled_search):
+    _, kept, prof = profiled_search
+    events = {}
+    for e in prof.events():
+        events.setdefault(e.name, []).append(e)
+    for name, parent in PARENT.items():
+        assert name in events, name
+        parents = parent if isinstance(parent, tuple) else (parent,)
+        for e in events[name]:
+            up = e.cpu_parent
+            while up is not None and up.name not in PARENT and up.name != "search":
+                up = up.cpu_parent  # an operator's own events between spans
+            assert up is not None and up.name in parents, (name, up and up.name)
+    assert len(events["hop"]) == len(named(kept[0].root, "hop"))
+    assert len(events["search"]) == 1
+
+
+def test_answers_equal_with_the_profiler_on_and_off(case, profiled_search):
+    eng, qf, qa = case
+    res_on, _, _ = profiled_search
+    res_off = eng.search(one_of_batch(qf, qa), PARAMS)
+    assert torch.equal(res_on.ids, res_off.ids)
+    assert torch.equal(res_on.sqdists, res_off.sqdists)
+    assert int(res_on.n_hops) == int(res_off.n_hops)
+    assert torch.equal(res_on.n_dist_evals, res_off.n_dist_evals)
+
+
+def test_unprofiled_search_keeps_and_allocates_nothing(case, monkeypatch):
+    """Without a profiler or a tracer no span is made, no profiler record is
+    entered, nothing is kept, and the span sites allocate nothing."""
+    eng, qf, qa = case
+    qb = one_of_batch(qf, qa)
+    eng.search(qb, PARAMS)
+    made = []
+
+    class Counted(obs_trace.Span):
+        __slots__ = ()
+
+        def __init__(self, *a, **kw):
+            made.append(a)
+            super().__init__(*a, **kw)
+
+    def no_record(name):
+        raise AssertionError(f"record_function({name!r}) without a profiler")
+
+    monkeypatch.setattr(obs_trace, "Span", Counted)
+    monkeypatch.setattr(obs_trace._profiler, "record_function", no_record)
+    obs_trace.PROFILED.clear()
+    res = eng.search(qb, PARAMS)
+    assert int(res.n_hops) > 0
+    assert made == [] and obs_trace.profiled_traces() == []
+    assert obs_trace.span("hop") is obs_trace.NOOP_SPAN
+    assert obs_trace.profiled_root("search") is obs_trace.NOOP_SPAN
+
+    def sites():
+        with obs_trace.profiled_root("search") as root:
+            with obs_trace.span("hop") as sp:
+                if sp or root:
+                    sp.set("active", 1)
+
+    sites()
+    tracemalloc.start()
+    try:
+        before = tracemalloc.take_snapshot()
+        for _ in range(1000):
+            sites()
+        after = tracemalloc.take_snapshot()
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    grown = sum(s.size_diff for s in after.compare_to(before, "filename") if s.size_diff > 0)
+    # tracemalloc's own bookkeeping shows a few kB; one object a call would
+    # be ≥ 1000 × its size
+    assert grown < 16_000 and peak < 64_000
+
+
+def test_sampled_serve_tree_takes_the_search_spans_under_the_profiler(case):
+    """Under the profiler a sampled request's open tree takes the engine's
+    spans (no root of its own is kept), and its spans reach the profiler's
+    events too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng, qf, qa = case
+    tracer = tobs.Tracer(sample_every=1)
+    obs_trace.PROFILED.clear()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        resp, _ = serve_loop(eng, trace(qf, qa, n=8), TenantRegistry(
+            default_policy=TenantPolicy(params=PARAMS)), window_ms=2.0, buckets=(1, 8),
+            tracer=tracer)
+    assert all(r.ok for r in resp)
+    assert obs_trace.profiled_traces() == []
+    batch = tracer.traces()[0].root.find("batch")
+    assert batch.find("execute").find("coarse") is not None and batch.find("hop") is not None
+    assert batch.find("search") is None
+    names = {e.name for e in prof.events()}
+    assert {"batch", "assemble", "plan", "execute", "coarse", "hop", "emit"} <= names
