@@ -248,25 +248,37 @@ def admissible_matrix(queries: QueryBatch, attrs: Tensor, one_of_only: bool = Fa
     dimensions) and exact ONE_OF set membership otherwise, the semantics of
     ``QueryBatch.admissible``. ``one_of_only`` constrains just the ONE_OF
     dimensions, as ``QueryBatch.admissible_rows(..., one_of_only=True)``."""
-    dev = attrs.device
-    if one_of_only:
-        if not queries.has_one_of:
-            return torch.ones((queries.batch_size, attrs.shape[0]), dtype=torch.bool, device=dev)
-        allowed = to_tensor(queries.allowed, torch.int32, dev)
-        hard = to_tensor(queries.hard, torch.bool, dev)
-        member = (attrs[None, :, :, None] == allowed[:, None, :, :]).any(-1)
-        return (member | ~hard[:, None, :]).all(-1)
-    mask = None if queries.mask is None else to_tensor(queries.mask, torch.int32, dev)
-    if not (queries.has_one_of or queries.has_intervals):
+    if not (one_of_only or queries.has_one_of or queries.has_intervals):
+        dev = attrs.device
+        mask = None if queries.mask is None else to_tensor(queries.mask, torch.int32, dev)
         return baselines_mod._equality_ok(to_tensor(queries.attrs, torch.int32, dev), attrs, mask)
-    xa = attrs[None, :, :]
-    lo, hi = (to_tensor(t, torch.int32, dev)[:, None, :] for t in queries._bounds())
-    okl = (xa >= lo) & (xa <= hi)
+    return admissible_rows(queries, attrs[None], one_of_only)
+
+
+def admissible_rows(queries: QueryBatch, rows: Tensor, one_of_only: bool = False) -> Tensor:
+    """(B, K) admissibility of per-query rows ``rows`` (B, K, L), or of one
+    table shared by every query (1, K, L), on their device: the semantics of
+    ``QueryBatch.admissible_rows``, bit for bit. ``one_of_only`` tests ONE_OF
+    membership over the ``-1``-padded ``allowed`` where ``hard``; otherwise
+    containment in ``_bounds()``, membership and the wildcard ``mask``."""
+    dev = rows.device
+    if one_of_only and not queries.has_one_of:
+        return torch.ones((queries.batch_size, rows.shape[1]), dtype=torch.bool, device=dev)
+    # every operand goes up before any work is queued: a blocking upload
+    # waits for the stream, and would otherwise wait for this test's own work
     if queries.has_one_of:
         allowed = to_tensor(queries.allowed, torch.int32, dev)
         hard = to_tensor(queries.hard, torch.bool, dev)
-        member = (xa[..., None] == allowed[:, None, :, :]).any(-1)
-        okl = okl & (member | ~hard[:, None, :])
+    if not one_of_only:
+        lo, hi = (to_tensor(t, torch.int32, dev)[:, None, :] for t in queries._bounds())
+        mask = None if queries.mask is None else to_tensor(queries.mask, torch.int32, dev)
+    if queries.has_one_of:
+        ok = (rows[..., None] == allowed[:, None, :, :]).any(-1) | ~hard[:, None, :]
+        if one_of_only:
+            return ok.all(-1)
+    okl = (rows >= lo) & (rows <= hi)
+    if queries.has_one_of:
+        okl = okl & ok
     if mask is not None:
         okl = okl | (mask[:, None, :] == 0)
     return okl.all(-1)
@@ -323,6 +335,7 @@ class Engine:
         default=executor_mod.CACHE_SIZE, repr=False, compare=False
     )
     _attrs_np: Optional[np.ndarray] = dataclasses.field(default=None, repr=False, compare=False)
+    _attrs_dev: Optional[Tensor] = dataclasses.field(default=None, repr=False, compare=False)
     _cost_model: Optional[CostModel] = dataclasses.field(default=None, repr=False, compare=False)
     _executor: Optional[Executor] = dataclasses.field(default=None, repr=False, compare=False)
 
@@ -338,6 +351,18 @@ class Engine:
             attrs = self.index.attrs
             self._attrs_np = attrs.cpu().numpy() if isinstance(attrs, Tensor) else attrs
         return self._attrs_np
+
+    @property
+    def device_attrs(self) -> Optional[Tensor]:
+        """The attribute matrix on the engine's device: a flat index's own
+        tensor, a sharded index's shards concatenated once per engine, or
+        None where the index keeps it on the host (partitioned)."""
+        if self._attrs_dev is None:
+            attrs = self.index.attrs
+            if not isinstance(attrs, Tensor):
+                return None
+            self._attrs_dev = attrs
+        return self._attrs_dev
 
     @property
     def cost_model(self) -> CostModel:
@@ -377,11 +402,12 @@ class Engine:
 
     def invalidate_caches(self) -> None:
         """Drop what was derived from ``self.index`` after a merge swapped
-        it (``repro_torch.mutable``): the host attribute copy and every
+        it (``repro_torch.mutable``): the attribute copies and every
         compiled executable (their closures hold entry pools sized for the
         old N). The cost model stays: it extrapolates across corpus growth,
         so a merge does not probe again."""
         self._attrs_np = None
+        self._attrs_dev = None
         if self._executor is not None:
             self._executor.clear()
 
@@ -547,13 +573,21 @@ class Engine:
         self, res: SearchResult, queries: QueryBatch, full: bool
     ) -> SearchResult:
         """Hard-filter traversal output: ONE_OF membership always, every
-        predicate (equality / interval containment) when ``full``."""
-        ids_np = res.ids.cpu().numpy()
-        taken = self.host_attrs[np.maximum(ids_np, 0)]  # (B, K, L)
-        ok = to_tensor(
-            queries.admissible_rows(taken, one_of_only=not full), torch.bool, self.device
-        )
-        ok = ok & (res.ids >= 0)
+        predicate (equality / interval containment) when ``full``. The
+        candidates' rows are gathered on the device from a device table, or
+        on the host from a host table (a partitioned index's) and uploaded;
+        either way the test runs on the device."""
+        table = self.device_attrs
+        sp = obs_trace.current()  # the executor's "filter" span when recorded
+        if sp:
+            sp.set("on_device", table is not None)
+        if table is not None:
+            taken = table[res.ids.clamp_min(0)]  # (B, K, L)
+        else:
+            taken = to_tensor(
+                self.host_attrs[np.maximum(res.ids.cpu().numpy(), 0)], torch.int32, self.device
+            )
+        ok = admissible_rows(queries, taken, one_of_only=not full) & (res.ids >= 0)
         # re-sort so survivors stay ascending with INVALID padding at the tail
         sq, take = smallest_k(res.sqdists.masked_fill(~ok, INF), res.sqdists.shape[1])
         out = res.ids.masked_fill(~ok, INVALID).gather(1, take)

@@ -18,7 +18,8 @@ the card (its backward kernel) equals the CPU's plain gradient bit for
 bit, both kernels replay from a CUDA graph, and fm's tables train through it
 (a regression test for a gradient the kernel's result would drop). A serve_loop
 trace on the card returns, for every request, what its query returns
-searched alone, bit for bit, on both backends. A merge of the mutable
+searched alone, bit for bit, on both backends. A graph search post-filtered on
+the card returns what the same search post-filtered on the host returns. A merge of the mutable
 engine on the card gives the CPU's adjacency (and codes, for pq and pq4)
 on integer data, the delta scan equals its plain version, and the old
 index's memory is freed after the swap. A sharded index on a (data=1,
@@ -773,6 +774,37 @@ def test_serve_loop_on_card_equals_solo_searches(cuda_dev, backend):
         alone = eng.search(QueryBatch.from_queries([q]), params)
         assert np.array_equal(alone.ids[0].cpu().numpy(), r.ids)
         assert np.array_equal(alone.dists[0].cpu().numpy(), r.dists)
+
+
+@pytest.mark.parametrize("cls,enforce", [("one_of", False), ("one_of", True), ("between", True)])
+def test_graph_post_filter_on_card_equals_host(cuda_dev, monkeypatch, cls, enforce):
+    """n = 20,000 float rows: a graph search post-filtered on the card (its
+    rows gathered from the index's own table) returns the ids and distances
+    of the same search post-filtered on the host by
+    ``QueryBatch.admissible_rows``, and copies no attribute table to the
+    host."""
+    from repro_torch.core.graph_ops import INF, INVALID, smallest_k
+
+    def host_post_filter(self, res, queries, full):
+        ids = res.ids.cpu().numpy()
+        ok = queries.admissible_rows(self.host_attrs[np.maximum(ids, 0)], one_of_only=not full)
+        ok = torch.from_numpy(ok & (ids >= 0)).to(res.ids.device)
+        sq, take = smallest_k(res.sqdists.masked_fill(~ok, INF), res.sqdists.shape[1])
+        out = res.ids.masked_fill(~ok, INVALID).gather(1, take)
+        return res._replace(ids=out, dists=torch.sqrt(torch.clamp_min(sq, 0.0)), sqdists=sq)
+
+    ds = make_hybrid_dataset(n=20_000, n_queries=64, profile="sift", seed=0)
+    card = Engine.build(ds.features, ds.attrs, device=cuda_dev)
+    host = Engine(card.index, cost_model_override=card.cost_model_override)
+    calls = []
+    monkeypatch.setattr(host, "_predicate_filter",
+                        lambda *a: calls.append(1) or host_post_filter(host, *a))
+    qb = _part_batches(ds)[cls]
+    params = SearchParams(k=10, backend="graph", enforce_equality=enforce)
+    a, b = card.search(qb, params), host.search(qb, params)
+    assert calls == [1] and a.ids.is_cuda
+    assert torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists)
+    assert card._attrs_np is None and card.device_attrs is card.index.attrs
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,10 @@ auto decision is not comparable across packages): graph and brute, for
 MATCH, subset, ONE_OF and BETWEEN batches, exact on integer-valued
 features. Also: equal plans under an injected ``CostModel``, the
 executor's hit/miss counters and compiled-plan count, a query bit-identical
-alone and padded into a batch of 8, ``save``/``load`` without a probe, and
-``device=None`` raising without a card."""
+alone and padded into a batch of 8, ``save``/``load`` without a probe,
+``device=None`` raising without a card, and the post-filter's device test
+against ``QueryBatch.admissible_rows``: mask for mask, and search for search
+against a host post-filter, with no host copy of the attribute table."""
 import dataclasses
 
 import pytest
@@ -19,8 +21,9 @@ from repro.api import Engine as JEngine, SearchParams as JParams  # noqa: E402
 from repro.api import planner as jplanner, query as jquery  # noqa: E402
 from repro.core.help_graph import HelpConfig as JHelp  # noqa: E402
 from repro_torch.api import Engine as TEngine, SearchParams as TParams  # noqa: E402
-from repro_torch.api import planner as tplanner, query as tquery  # noqa: E402
+from repro_torch.api import engine as tengine, planner as tplanner, query as tquery  # noqa: E402
 from repro_torch.core import routing as troute  # noqa: E402
+from repro_torch.core.graph_ops import INF, INVALID, smallest_k  # noqa: E402
 from repro_torch.core.index import index_from_numpy  # noqa: E402
 
 CLASSES = ("match", "subset", "one_of", "between")
@@ -154,3 +157,81 @@ def test_device_none_needs_a_card(engines, tmp_path):
             dataclasses.asdict(idx.metric_cfg), dataclasses.asdict(idx.help_cfg),
             dataclasses.asdict(idx.stats),
         )
+
+
+def filter_batch(kind: str, b: int, l: int, rng) -> tquery.QueryBatch:
+    """A batch over labels 0..3 of one compiled form: point (mask-free),
+    wildcard (a point batch with ANY dimensions), interval (BETWEEN), or
+    ONE_OF whose widest set has ``v`` values (narrower sets -1 padded),
+    mixed with MATCH, ANY and BETWEEN."""
+    qf = rng.normal(size=(b, 8)).astype(np.float32)
+    qa = rng.integers(0, 4, (b, l)).astype(np.int32)
+    if kind == "point":
+        return tquery.QueryBatch.match(qf, qa)
+    if kind == "wildcard":
+        return tquery.QueryBatch.match(qf, qa, active=[0, 2])
+
+    def pred(i, j):
+        r = rng.integers(0, 4)
+        if kind == "interval" or r == 0:
+            lo = int(rng.integers(0, 3))
+            return tquery.BETWEEN(lo, lo + int(rng.integers(0, 2)))
+        if r == 1:
+            return tquery.MATCH(int(qa[i, j]))
+        if r == 2:
+            return tquery.ANY
+        v = int(kind[-1])
+        size = v if j == 0 else int(rng.integers(1, v + 1))
+        return tquery.ONE_OF(*(int(x) for x in rng.choice(4, size, replace=False)))
+
+    return tquery.QueryBatch.from_queries(
+        [tquery.Query(qf[i], [pred(i, j) for j in range(l)]) for i in range(b)]
+    )
+
+
+@pytest.mark.parametrize("one_of_only", [True, False])
+@pytest.mark.parametrize("kind", ["point", "wildcard", "interval", "one_of_v1", "one_of_v2",
+                                  "one_of_v3"])
+def test_device_admissible_rows_equal_host(kind, one_of_only):
+    rng = np.random.default_rng(len(kind) + 7 * one_of_only)
+    b, k, l, n = 24, 40, 5, 300
+    qb = filter_batch(kind, b, l, rng)
+    if kind.startswith("one_of"):  # V values, sets narrower than V padded with -1
+        v = int(kind[-1])
+        assert qb.allowed.shape[2] == v and (qb.allowed[qb.hard] == -1).any() == (v > 1)
+    host = rng.integers(0, 4, (n, l)).astype(np.int32)
+    ids_np = rng.integers(-1, n, (b, k)).astype(np.int32)  # -1 is INVALID
+    assert (ids_np == INVALID).any()
+    ids = torch.from_numpy(ids_np)
+    table = torch.from_numpy(host)
+    got = tengine.admissible_rows(qb, table[ids.clamp_min(0)], one_of_only) & (ids >= 0)
+    want = qb.admissible_rows(host[np.maximum(ids_np, 0)], one_of_only) & (ids_np >= 0)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.any() and not want.all()
+
+
+def host_post_filter(self, res, queries, full):
+    """The post-filter computed on the host: the ids copied back, the rows
+    gathered from ``host_attrs`` and tested by ``QueryBatch.admissible_rows``."""
+    ids = res.ids.cpu().numpy()
+    ok = queries.admissible_rows(self.host_attrs[np.maximum(ids, 0)], one_of_only=not full)
+    ok = torch.from_numpy(ok & (ids >= 0)).to(res.ids.device)
+    sq, take = smallest_k(res.sqdists.masked_fill(~ok, INF), res.sqdists.shape[1])
+    out = res.ids.masked_fill(~ok, INVALID).gather(1, take)
+    return res._replace(ids=out, dists=torch.sqrt(torch.clamp_min(sq, 0.0)), sqdists=sq)
+
+
+@pytest.mark.parametrize("cls,enforce", [("one_of", False), ("one_of", True), ("between", True)])
+def test_graph_post_filter_on_device_equals_host(engines, monkeypatch, cls, enforce):
+    _, teng, _, tb = engines
+    dev = TEngine(teng.index, cost_model_override=teng.cost_model_override)
+    host = TEngine(teng.index, cost_model_override=teng.cost_model_override)
+    calls = []
+    monkeypatch.setattr(host, "_predicate_filter",
+                        lambda *a: calls.append(1) or host_post_filter(host, *a))
+    params = TParams(k=10, backend="graph", enforce_equality=enforce)
+    a, b = dev.search(tb[cls], params), host.search(tb[cls], params)
+    assert calls == [1]
+    assert torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists)
+    assert torch.equal(a.sqdists, b.sqdists)
+    assert dev._attrs_np is None and dev.device_attrs is teng.index.attrs

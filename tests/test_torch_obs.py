@@ -312,6 +312,7 @@ def test_profiled_search_keeps_one_search_root_with_every_stage(profiled_search)
     assert all(0 <= t.attrs["active"] <= 24 for t in tests)
     assert tests[0].attrs["active"] == 24 and tests[-1].attrs["active"] == 0
     assert named(root, "filter")[0].attrs["rows"] == 24
+    assert named(root, "filter")[0].attrs["on_device"] is True  # a flat index's own table
     assert root.duration >= named(root, "execute")[0].duration > 0
 
 

@@ -512,6 +512,25 @@ def test_host_attrs_reads_the_memmap(saved, data):
     assert eng.device == torch.device("cpu")
 
 
+def test_graph_sub_backend_post_filters_from_the_host_table(saved, data):
+    """A partitioned index keeps its attributes on the host (a memmap): the
+    post-filter gathers the candidates' rows there, uploads them for the
+    device test, and its span records ``on_device`` false."""
+    from repro_torch.obs.trace import Span
+
+    eng = tapi.Engine.load(saved[0], device="cpu")
+    assert eng.device_attrs is None
+    qb = batches(data)["one_of"]
+    with Span("query") as root:
+        res = eng.search(qb, tapi.SearchParams(k=K, nprobe=P, sub_backend="graph"))
+    assert root.find("filter").attrs == {"rows": NQ, "on_device": False}
+    assert isinstance(eng._attrs_np, np.memmap)
+    ids = res.ids.numpy()
+    assert (ids[:, 0] >= 0).all()
+    ok = qb.admissible_rows(data[1][np.maximum(ids, 0)], one_of_only=True)
+    assert ok[ids >= 0].all()
+
+
 def test_execute_span_carries_probe_attributes(saved, data):
     from repro_torch.obs.trace import Span
 
