@@ -11,7 +11,8 @@ A run:
 
 1. set-up (``setup_s``, from the start of the process): the data is drawn
    on the card from the seed (``datagen``), the program's ``Engine.build``
-   indexes it as the configuration's ``index`` states (``build_s``), the
+   (or ``Engine.build_partitioned``, where the configuration's ``index``
+   names a ``partition``) indexes it as that ``index`` states (``build_s``), the
    program compiles each group of queries once (``loadgen``), and the
    driver warms up every shape the window uses (the first run in a
    checkout also builds the kernels there);
@@ -47,11 +48,19 @@ TRACE_CALLS, TRACE_SECONDS = 8, 1.0
 #: top-level modules that may not be loaded in a run: JAX and the JAX package
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 #: the keys of a configuration's file; ``index`` holds ``help`` (the
-#: program's ``HelpConfig`` fields) and ``quant`` (``QuantConfig``'s, or null)
+#: program's ``HelpConfig`` fields), ``quant`` (``QuantConfig``'s, or null)
+#: and ``partition`` (null, or ``PartitionedStableIndex.build`` keywords: the
+#: flat index where it is missing or null)
 CONFIG_KEYS = {"name", "source", "reduced", "n_rows", "dim", "n_queries", "attr_dim",
                "labels_per_dim", "cardinality", "profile", "n_clusters", "data_seed",
                "latent_dim", "index", "assumed"}
-INDEX_KEYS = {"help", "quant"}
+INDEX_KEYS = {"help", "quant", "partition"}
+#: ``n_partitions`` is required; ``residency_rows`` null lets every
+#: partition stay resident
+PARTITION_KEYS = {"n_partitions", "residency_rows", "kmeans_iters"}
+#: the sub-backends a partitioned mix may pin (the planner's "auto" would
+#: leave the choice to its cost model)
+SUB_BACKENDS = ("brute", "graph")
 #: the end-to-end quantities a run measures; a metric ``<quantity>.<part>``
 #: is that quantity, reported in the cells its ``workloads`` names
 END_TO_END = ("qps", "p95_ms", "recall_at_10", "setup_s")
@@ -93,10 +102,13 @@ class Cell:
         self.name = name
         conf = {c["name"]: c for c in manifest["configs"]}[self.workload["config"]]
         self.config = load_json(ROOT / conf["file"])
-        unread = (set(self.config) - CONFIG_KEYS) | (set(self.config.get("index", {})) - INDEX_KEYS)
+        index = self.config.get("index", {})
+        unread = ((set(self.config) - CONFIG_KEYS) | (set(index) - INDEX_KEYS)
+                  | (set(index.get("partition") or {}) - PARTITION_KEYS))
         if unread:
             raise ValueError(f"{conf['file']}: keys the harness does not read: {sorted(unread)}")
         self.mix = loadgen.load_mix(self.workload["traffic"])
+        check_backend(conf["file"], index, self.workload["traffic"], self.mix["params"])
         self.driver = _module("drivers", self.mix["driver"])
         self.limits = load_json(HERE / "limits" / f"{name}.json")
         self.end_to_end = [m for m in manifest["end_to_end"] if name in m.get("workloads", [name])]
@@ -105,6 +117,25 @@ class Cell:
             m for m in manifest["per_layer"]
             if (name in m["workloads"] if "workloads" in m else m["moves"] in reported)
         ]
+
+
+def check_backend(config_file: str, index: dict, traffic: str, params: dict) -> None:
+    """Stop the run before set-up where the mix's backend cannot search the
+    configuration's index: a partitioned index takes the partitioned backend
+    and a flat one any other, and a partitioned mix pins ``nprobe`` and its
+    sub-backend."""
+    part = index.get("partition")
+    backend = params.get("backend")
+    if part is not None and "n_partitions" not in part:
+        raise ValueError(f"{config_file}: index.partition needs n_partitions")
+    if (part is not None) != (backend == "partitioned"):
+        kind = "a partitioned" if part is not None else "a flat"
+        raise ValueError(f"traffic {traffic!r} searches with backend {backend!r}, which "
+                         f"{kind} index ({config_file}) does not take")
+    if backend == "partitioned" and not (params.get("nprobe", 0) > 0
+                                         and params.get("sub_backend") in SUB_BACKENDS):
+        raise ValueError(f"traffic {traffic!r}: a partitioned mix names nprobe (> 0) and "
+                         f"sub_backend (one of {SUB_BACKENDS})")
 
 
 def reader(metric: str):
@@ -121,14 +152,21 @@ def sync(device) -> None:
 
 def build_engine(api, cfg: dict, features, attrs, device):
     """``Engine.build`` with the configuration's index: its ``HelpConfig`` and
-    codec."""
+    codec; ``Engine.build_partitioned`` where the index names a
+    ``partition``, with its keywords as well."""
     from repro_torch.core.help_graph import HelpConfig
     from repro_torch.quant import QuantConfig
 
     idx = cfg["index"]
+    help_cfg = HelpConfig(**idx.get("help", {}))
     quant = QuantConfig(**idx["quant"]) if idx.get("quant") else None
-    return api.Engine.build(features, attrs, help_cfg=HelpConfig(**idx.get("help", {})),
-                            quant_cfg=quant, device=device)
+    part = idx.get("partition")
+    if part is not None:
+        rest = {k: v for k, v in part.items() if k != "n_partitions"}
+        return api.Engine.build_partitioned(features, attrs, part["n_partitions"],
+                                            help_cfg=help_cfg, quant_cfg=quant, device=device,
+                                            **rest)
+    return api.Engine.build(features, attrs, help_cfg=help_cfg, quant_cfg=quant, device=device)
 
 
 class Program:

@@ -10,7 +10,7 @@ Every answer the window produced is held to the reference
 ``malformed``   answers with an id out of range, a repeated id, a valid id
                 after an INVALID one, scores that do not ascend, fewer
                 valid ids than are due (an exact backend: every admitted row
-                up to k; a traversal: k, unless a predicate is enforced on
+                up to k; any other: k, unless a predicate is enforced on
                 its output), or an id that breaks a predicate the backend
                 enforces. Exact: limit 0.
 ``score_gap``   the largest gap between a returned score and the
@@ -21,12 +21,23 @@ Every answer the window produced is held to the reference
                 of the returned rows, in the reference's scores, and the
                 reference's own k-th score, over (|q|² + |x|²): ties cost
                 nothing, a row outside the exact top-k costs its margin.
+``short_share`` (backends that enforce every predicate and are not exact: a
+                scan of some partitions, a scan of codes, a traversal under
+                ``enforce_equality``) the share of answers, of queries that
+                admit any row, with fewer valid ids than min(k, rows
+                admitted): rows the search did not reach, which
+                ``malformed`` cannot count there. Its limit is the cell's,
+                from its readings.
 
 What a backend promises follows from the search parameters and the index
 (``promises``): the brute backend over full-precision rows enforces every
 predicate and is exact; a traversal enforces ONE_OF membership (every
-predicate with ``enforce_equality``) and is not exact. Returned scores are
-held to AUTO's, which equals L2 on a row that meets every predicate.
+predicate with ``enforce_equality``) and is not exact. A partitioned index
+promises what its searcher enforces: its brute sub-backend scans the
+probed partitions with every predicate, and is exact over full-precision
+rows when it probes every partition; its graph sub-backend is a traversal.
+Returned scores are held to AUTO's, which equals L2 on a row that meets
+every predicate.
 """
 from __future__ import annotations
 
@@ -94,17 +105,25 @@ def predicate_mismatches(batches: list, group_rows: list, preds: ref.Predicates)
 
 
 def promises(params: dict, index: dict) -> dict:
-    """``exact`` and ``hard_all`` (every predicate enforced) of a backend."""
-    brute = params["backend"] == "brute"
+    """``exact`` and ``hard_all`` (every predicate enforced) of a backend over
+    the configuration's ``index``. A partitioned plan's sub-backend decides,
+    as ``PartitionedSearcher.search`` does: a scan enforces every predicate,
+    and is exact at full probe."""
     full = not index.get("quant") or index["quant"].get("mode", "none") == "none"
-    return {"exact": brute and full,
-            "hard_all": brute or bool(params.get("enforce_equality", False))}
+    scans = params["backend"] == "brute"
+    every_row = True
+    if params["backend"] == "partitioned":
+        scans = params["sub_backend"] == "brute"
+        every_row = params["nprobe"] >= index["partition"]["n_partitions"]
+    return {"exact": scans and full and every_row,
+            "hard_all": scans or bool(params.get("enforce_equality", False))}
 
 
 def judge(features, attrs, qf, preds: ref.Predicates, alpha: float, exact, answers: Answers,
           promised: dict) -> dict:
     """``malformed`` (with ``malformed_by``, the answers of each kind of
-    fault), ``score_gap``, ``exact_gap`` (exact backends) and
+    fault), ``score_gap``, ``exact_gap`` (exact backends), ``short_share``
+    (every predicate enforced, not exact) and
     ``recall`` (the mean, over answers whose query admits any row, of the
     share of the exact top-k returned) of every answer. ``exact`` is ``reference.exact_topk``'s."""
     dev = features.device
@@ -112,6 +131,8 @@ def judge(features, attrs, qf, preds: ref.Predicates, alpha: float, exact, answe
     x_ids, x_d2, x_adm = exact
     enforce_all = promised["hard_all"]
     malformed, score_gap, exact_gap, hits, judged, by = 0, 0.0, 0.0, 0.0, 0, {}
+    short, admitting = 0, 0
+    counts_short = enforce_all and not promised["exact"]
     for s in range(0, len(answers.query), ANSWER_BLOCK):
         qi = torch.as_tensor(answers.query[s: s + ANSWER_BLOCK], device=dev, dtype=torch.int64)
         ids = torch.as_tensor(answers.ids[s: s + ANSWER_BLOCK], device=dev).to(torch.int64)
@@ -126,8 +147,11 @@ def judge(features, attrs, qf, preds: ref.Predicates, alpha: float, exact, answe
             due = adm.clamp_max(k)
         else:
             # a traversal fills its pool from every row; a filtered one may
-            # keep none of it (recall counts that loss)
-            due = torch.where(p.hard.any(1), 0, min(k, n))
+            # keep none of it, and a scan of some partitions under every
+            # predicate owes only the admitted rows it scanned (recall
+            # counts that loss)
+            enforced = p.mask if enforce_all else p.hard
+            due = torch.where(enforced.any(1), 0, min(k, n))
         # the predicates the backend enforces, on every returned row
         xa = attrs[safe].to(torch.int64)  # (A, k, L)
         inside = (xa >= p.lo[:, None, :]) & (xa <= p.hi[:, None, :])
@@ -149,6 +173,9 @@ def judge(features, attrs, qf, preds: ref.Predicates, alpha: float, exact, answe
             by[why] = by.get(why, 0) + int(f.sum())
             bad |= f
         malformed += int(bad.sum())
+        if counts_short:
+            short += int(((valid.sum(1) < adm.clamp_max(k)) & (adm > 0)).sum())
+            admitting += int((adm > 0).sum())
         # the returned scores against the reference's
         qv = qf[qi].double()
         xv = features[safe].double()
@@ -174,6 +201,8 @@ def judge(features, attrs, qf, preds: ref.Predicates, alpha: float, exact, answe
     out = {"malformed": malformed, "score_gap": score_gap}
     if promised["exact"]:
         out["exact_gap"] = exact_gap
+    if counts_short:
+        out["short_share"] = short / max(admitting, 1)
     out["recall"] = hits / max(judged, 1)
     out["malformed_by"] = {k: v for k, v in by.items() if v}
     return out

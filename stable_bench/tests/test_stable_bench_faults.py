@@ -2,7 +2,8 @@
 and every fault a search cell can have make ``correct`` false.
 
 Each test drives the rest of a run (set-up, window, check) on the CPU at a
-small size, with the timed path broken underneath ``Engine.search``."""
+small size, with the timed path broken underneath ``Engine.search``, on the
+flat index and on a partitioned one."""
 import numpy as np
 import pytest
 import torch
@@ -11,7 +12,11 @@ from repro_torch import api
 from stable_bench import bench, control, reference
 from stable_bench.tests.helpers import CPU, small_cell
 
-CELLS = ["sift1m-theta243.bulk_graph", "sift1m-theta243.bulk_exact"]
+#: the manifest's two backends, and the partitioned backend's scan of some
+#: partitions, its scan of every partition (exact) and its traversal, under
+#: a residency cap
+CELLS = ["sift1m-theta243.bulk_graph", "sift1m-theta243.bulk_exact", "partitioned.brute",
+         "partitioned.brute_full", "partitioned.graph"]
 
 
 @pytest.fixture(scope="module", params=CELLS)

@@ -83,7 +83,9 @@ def test_cell_found_by_name(cell):
     assert c.config["name"] == w["config"]
     assert set(c.limits) >= {"predicates", "malformed", "score_gap"}
     assert c.limits["predicates"] == 0 and c.limits["malformed"] == 0
-    assert ("exact_gap" in c.limits) == check.promises(c.mix["params"], c.config["index"])["exact"]
+    promised = check.promises(c.mix["params"], c.config["index"])
+    assert ("exact_gap" in c.limits) == promised["exact"]
+    assert ("short_share" in c.limits) == (promised["hard_all"] and not promised["exact"])
     for m in c.per_layer:
         assert callable(bench.reader(m["name"]))
     assert c.driver.groups(c.mix, c.config["n_queries"])
@@ -113,17 +115,62 @@ def test_check_time_fits_with_all_cells():
     assert runs * (run + 60) + 24 * 2 * 90 + 1200 <= 43200
 
 
-@pytest.mark.parametrize("where", ["config", "index"])
-def test_a_key_the_harness_does_not_read_stops_the_run(where, monkeypatch):
-    """A configuration may not state what no run honours."""
-    load = bench.load_json
+PARTITION = {"n_partitions": 8, "residency_rows": None, "kmeans_iters": 10}
+PARTITIONED = {"backend": "partitioned", "nprobe": 3, "sub_backend": "brute"}
 
-    def with_extra(path):
+
+def _partitioned(body, **extra):
+    body["index"]["partition"] = dict(PARTITION, **extra)
+
+
+def _without(key):
+    def edit(params):
+        params.update(PARTITIONED)
+        del params[key]
+    return edit
+
+
+#: (edit of the configuration, edit of the mix's params, what the error names)
+MALFORMED = {
+    "config": (lambda b: b.update(pool_size=100), None, "pool_size"),
+    "index": (lambda b: b["index"].update(pool_size=100), None, "pool_size"),
+    "partition": (lambda b: _partitioned(b, pool_size=100), lambda p: p.update(PARTITIONED),
+                  "pool_size"),
+    "partition_without_n_partitions": (lambda b: b["index"].update(partition={"kmeans_iters": 10}),
+                                       lambda p: p.update(PARTITIONED), "n_partitions"),
+    "partitioned_mix_without_nprobe": (_partitioned, _without("nprobe"), "nprobe"),
+    "partitioned_mix_without_sub_backend": (_partitioned, _without("sub_backend"), "sub_backend"),
+    "partitioned_mix_with_auto_sub_backend": (_partitioned,
+                                              lambda p: p.update(PARTITIONED, sub_backend="auto"),
+                                              "sub_backend"),
+    "partitioned_mix_with_zero_nprobe": (_partitioned, lambda p: p.update(PARTITIONED, nprobe=0),
+                                         "nprobe"),
+    "partitioned_index_flat_mix": (_partitioned, None, "does not take"),
+    "flat_index_partitioned_mix": (None, lambda p: p.update(PARTITIONED), "does not take"),
+}
+
+
+@pytest.mark.parametrize("where", list(MALFORMED))
+def test_a_key_the_harness_does_not_read_stops_the_run(where, monkeypatch):
+    """A configuration may not state what no run honours, and a mix may not
+    search an index with a backend that cannot take it: either stops the
+    run before set-up."""
+    edit_config, edit_params, names = MALFORMED[where]
+    load, load_mix = bench.load_json, bench.loadgen.load_mix
+
+    def config_edited(path):
         body = load(path)
-        if "configs" in str(path):
-            (body if where == "config" else body["index"])["pool_size"] = 100
+        if "configs" in str(path) and edit_config:
+            edit_config(body)
         return body
 
-    monkeypatch.setattr(bench, "load_json", with_extra)
-    with pytest.raises(ValueError, match="pool_size"):
+    def mix_edited(name):
+        mix = load_mix(name)
+        if edit_params:
+            edit_params(mix["params"])
+        return mix
+
+    monkeypatch.setattr(bench, "load_json", config_edited)
+    monkeypatch.setattr(bench.loadgen, "load_mix", mix_edited)
+    with pytest.raises(ValueError, match=names):
         bench.Cell(M, M["workloads"][0]["name"])
