@@ -249,45 +249,73 @@ class PartitionedStableIndex:
         ``hard_all=True`` (oracle sub-backend, or ``enforce_equality``)
         prunes on every active dimension.
         """
-        s = self.summaries
-        b, p = queries.batch_size, self.n_partitions
-        ok = np.broadcast_to((s.n_rows > 0)[None, :], (b, p)).copy()  # (B, P)
-        lo, hi = queries._bounds()  # (B, L)
-        active = np.ones_like(lo, bool) if queries.mask is None else queries.mask != 0
+        return self._survivors(self._probe_operands(queries), hard_all).cpu().numpy().copy()
+
+    def _probe_operands(self, queries) -> dict:
+        """The query operands ``probe`` reads, on the index's device."""
+        lo, hi = queries._bounds()
+        dev = self.device
+        return {
+            "vectors": to_tensor(queries.vectors, torch.float32, dev),
+            "lo": to_tensor(lo, torch.int32, dev), "hi": to_tensor(hi, torch.int32, dev),
+            "allowed": (None if queries.allowed is None
+                        else to_tensor(queries.allowed, torch.int32, dev)),
+            "hard": None if queries.hard is None else to_tensor(queries.hard, torch.bool, dev),
+            "mask": None if queries.mask is None else to_tensor(queries.mask, torch.int32, dev),
+        }
+
+    def _summary_tensors(self) -> tuple:
+        """(n_rows, attr_min, attr_max) of the summaries on the device, once."""
+        got = getattr(self, "_summaries_dev", None)
+        if got is None:
+            s, dev = self.summaries, self.device
+            got = (to_tensor(s.n_rows, torch.int64, dev), to_tensor(s.attr_min, torch.int32, dev),
+                   to_tensor(s.attr_max, torch.int32, dev))
+            self._summaries_dev = got
+        return got
+
+    def _survivors(self, q: dict, hard_all: bool) -> torch.Tensor:
+        """``survivor_mask`` over device operands (``_probe_operands``)."""
+        n_rows, amin, amax = self._summary_tensors()
+        lo, hi = q["lo"], q["hi"]
+        b, p = lo.shape[0], self.n_partitions
+        ok = (n_rows > 0)[None, :].expand(b, p)  # (B, P)
+        active = torch.ones_like(lo, dtype=torch.bool) if q["mask"] is None else q["mask"] != 0
         if hard_all:
             hard = active
-        elif queries.hard is not None:
-            hard = queries.hard & active
+        elif q["hard"] is not None:
+            hard = q["hard"] & active
         else:
             return ok
         # interval-hull intersection per hard dim: [lo, hi] ∩ [min, max] ≠ ∅
-        hit = (s.attr_max[None, :, :] >= lo[:, None, :]) & (
-            s.attr_min[None, :, :] <= hi[:, None, :]
-        )  # (B, P, L)
-        if queries.allowed is not None:
+        hit = (amax[None, :, :] >= lo[:, None, :]) & (amin[None, :, :] <= hi[:, None, :])
+        if q["allowed"] is not None:
             # ONE_OF dims: some *member value* must lie inside the hull,
             # strictly stronger than the covering-interval test and still
             # conservative (values outside [min, max] cannot occur)
-            av = queries.allowed  # (B, L, V), -1 padded
+            av = q["allowed"][:, None, :, :]  # (B, 1, L, V), -1 padded
             member_hit = (
-                (av[:, None, :, :] >= 0)
-                & (av[:, None, :, :] >= s.attr_min[None, :, :, None])
-                & (av[:, None, :, :] <= s.attr_max[None, :, :, None])
+                (av >= 0) & (av >= amin[None, :, :, None]) & (av <= amax[None, :, :, None])
             ).any(-1)  # (B, P, L)
-            is_one_of = queries.hard  # (B, L)
-            hit = np.where(is_one_of[:, None, :], member_hit, hit)
-        ok &= np.where(hard[:, None, :], hit, True).all(-1)
-        return ok
+            hit = torch.where(q["hard"][:, None, :], member_hit, hit)
+        return ok & torch.where(hard[:, None, :], hit, True).all(-1)
 
-    def probe(self, queries, nprobe: int, hard_all: bool) -> np.ndarray:
+    def probe(self, queries, nprobe: int, hard_all: bool, operands: Optional[dict] = None
+              ) -> np.ndarray:
         """(B, nprobe) partition ids by ascending centroid distance over the
-        survivor set; -1 slots mark pruned/empty probes."""
-        scores = self.quantizer.scores(queries.vectors).cpu().numpy()  # (B, P)
-        ok = self.survivor_mask(queries, hard_all)
-        scores = np.where(ok, scores, np.inf)
-        order = np.argsort(scores, axis=1, kind="stable")[:, :nprobe]
-        chosen = np.take_along_axis(scores, order, axis=1)
-        return np.where(np.isfinite(chosen), order, -1).astype(np.int32)
+        survivor set; -1 slots mark pruned/empty probes. Computed on the
+        index's device from ``operands`` (``_probe_operands``'s keys; made
+        from ``queries`` when None); only the ids come back to the host."""
+        q = self._probe_operands(queries) if operands is None else operands
+        return self.probe_ids(q, nprobe, hard_all).cpu().numpy()
+
+    def probe_ids(self, q: dict, nprobe: int, hard_all: bool) -> torch.Tensor:
+        """``probe`` on the device, over device operands: (B, nprobe) int32."""
+        scores = self.quantizer.scores(q["vectors"])  # (B, P)
+        scores = torch.where(self._survivors(q, hard_all), scores, torch.inf)
+        order = torch.sort(scores, dim=1, stable=True).indices[:, :nprobe]
+        chosen = scores.gather(1, order)
+        return torch.where(torch.isfinite(chosen), order, -1).to(torch.int32)
 
     # -- construction ------------------------------------------------------
 

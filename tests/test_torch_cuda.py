@@ -850,6 +850,38 @@ def test_partitioned_full_probe_bit_exact_on_float_data(cuda_dev, mode):
     assert part.index.store.stats()["evictions"] > 0
 
 
+def test_partitioned_graphed_groups_equal_the_eager_loop(cuda_dev):
+    """Every partition resident: the brute sub-backend's probe and groups
+    replayed as CUDA graphs give the eager loop's answers (run under a cap
+    that holds all but one partition) bit for bit, on the first call of a
+    shape (run eagerly, then captured) and on the calls that replay it, for
+    the four predicate kinds, a partial and a full probe and two batch
+    sizes."""
+    from repro_torch.partition import row_bucket
+    from repro_torch.partition.search import PartitionedSearcher
+
+    ds = make_hybrid_dataset(n=20_000, n_queries=64, profile="sift", seed=5)
+    part = Engine.build_partitioned(ds.features, ds.attrs, n_partitions=16,
+                                    build_graph=False, device=cuda_dev)
+    buckets = [row_bucket(int(r)) for r in part.index.summaries.n_rows]
+    batches = {f"{kind}/{b}": q for b in (64, 37)
+               for kind, q in _part_batches(ds, b).items()}
+    for nprobe in (3, 16):
+        params = SearchParams(k=10, nprobe=nprobe, sub_backend="brute")
+        part.index.set_residency(sum(buckets) - min(buckets))
+        assert not PartitionedSearcher._graphed(part.index)
+        want = {name: part.search(q, params) for name, q in batches.items()}
+        part.index.set_residency(None)
+        assert PartitionedSearcher._graphed(part.index)
+        for _ in range(2):
+            for name, q in batches.items():
+                got = part.search(q, params)
+                for f in ("ids", "dists", "sqdists"):
+                    assert torch.equal(getattr(got, f), getattr(want[name], f)), \
+                        f"nprobe {nprobe}, {name}: {f}"
+    assert part.index._scan_graphs.graphs and part.index._scan_graphs.probes
+
+
 def _part_store(dev, n_parts: int = 4, rows: int = 3000):
     from repro_torch.partition import PartitionData, SegmentStore
 

@@ -362,6 +362,36 @@ def test_full_probe_keeps_the_flat_tie_order(data, kind):
     assert_bit_equal(res, ref, kind)
 
 
+@pytest.mark.parametrize("b, nprobe, k", [(128, 11, 10), (37, 5, 300), (1, 4, 10)])
+def test_graph_stage_rows_follow_the_eager_loop(b, nprobe, k):
+    """The card's graphed groups read one staged row a group: its slot, the
+    eager loop's padded sub-batch (``_pad_idx``), each row's merge-buffer
+    row (pads to row B) and the query's fill level as the eager loop
+    reaches it, in the eager loop's order (``_groups``)."""
+    from repro_torch.partition.search import _batch_bucket, _groups, _pad_idx, _stage_rows
+
+    rng = np.random.default_rng(b * nprobe)
+    p = 24
+    probes = np.stack([rng.choice(p, nprobe, replace=False) for _ in range(b)]).astype(np.int32)
+    probes[rng.random(probes.shape) < 0.2] = -1
+    n_pad = rng.choice([256, 4096, 8192], p).astype(np.int64)
+    slot = rng.permutation(p).astype(np.int64)
+    stage, pids, ns, buckets = _stage_rows(probes, k, n_pad, slot)
+    fill = np.zeros(b, np.int64)
+    groups = _groups(probes)
+    assert pids.tolist() == list(groups)
+    for row, pid, n, bucket, (gpid, qidx) in zip(stage, pids, ns, buckets, groups.items()):
+        want = _batch_bucket(qidx.size, b)
+        assert (n, bucket) == (qidx.size, want)
+        assert row[0] == slot[pid]
+        np.testing.assert_array_equal(row[1:1 + bucket], _pad_idx(qidx, bucket))
+        np.testing.assert_array_equal(row[1 + bucket:1 + bucket + n], qidx)
+        assert (row[1 + bucket + n:1 + 2 * bucket] == b).all()
+        np.testing.assert_array_equal(row[1 + 2 * bucket:1 + 2 * bucket + n], fill[qidx])
+        assert (row[1 + 2 * bucket + n:] == 0).all()
+        fill[qidx] += min(k, n_pad[pid])
+
+
 def test_select_orders_by_score_then_global_id():
     from repro_torch.partition.search import _select_perm
 
@@ -539,9 +569,113 @@ def test_execute_span_carries_probe_attributes(saved, data):
         eng.search(batches(data)["one_of"], tapi.SearchParams(k=K, nprobe=2, sub_backend="brute"))
     plan = root.find("plan").attrs
     assert plan["nprobe"] == 2 and plan["sub_backend"] == "brute"
-    ex = root.find("execute").attrs
-    assert ex["partitions_scored"] == P and ex["nprobe"] == 2
-    assert ex["partitions_probed"] + ex["partitions_pruned"] == 2 * NQ
+    # the probe's attribution sits in the searcher's own ``probe`` span,
+    # inside the executor's ``execute``
+    probe = root.find("execute").find("probe").attrs
+    assert probe["partitions_scored"] == P and probe["nprobe"] == 2
+    assert probe["partitions_probed"] + probe["partitions_pruned"] == 2 * NQ
+
+
+def _named(span, name):
+    out = [span] if span.name == name else []
+    for c in span.children:
+        out.extend(_named(c, name))
+    return out
+
+
+#: (engine, sub-backend) of each searcher loop: the exact scan, the pq scan
+#: with its global rerank, the traversal
+SPAN_CASES = [("none", "brute"), ("pq", "brute"), ("pq", "graph")]
+
+
+def _span_engine(saved, flat_and_part, mode):
+    if mode == "none":
+        return flat_and_part["none"][1]
+    return tapi.Engine.load(saved[0], device="cpu")
+
+
+def _profiled(eng, qb, params):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import trace as obs_trace
+
+    eng.search(qb, params)  # plan compiled outside the profile
+    obs_trace.PROFILED.clear()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = eng.search(qb, params)
+    kept = obs_trace.profiled_traces()
+    obs_trace.PROFILED.clear()
+    return res, kept, prof
+
+
+@pytest.mark.parametrize("mode,sub", SPAN_CASES)
+def test_profiled_partitioned_search_keeps_probe_groups_and_merge(saved, flat_and_part, data,
+                                                                  mode, sub):
+    """Under the profiler a partitioned search keeps one ``probe``, one
+    ``group`` a probed partition with its shape, and one ``merge``, in the
+    profiler's events too; the answers equal those of a search without it."""
+    from repro_torch.partition.search import _batch_bucket, _groups
+
+    eng = _span_engine(saved, flat_and_part, mode)
+    qb = batches(data)["one_of"]
+    params = tapi.SearchParams(k=K, nprobe=3, sub_backend=sub)
+    res, kept, prof = _profiled(eng, qb, params)
+    assert len(kept) == 1
+    root = kept[0].root
+    assert root.attrs == {"backend": "partitioned", "batch": NQ}
+    (probe,) = _named(root, "probe")
+    (merge,) = _named(root, "merge")
+    groups = _named(root, "group")
+    probes = eng.index.probe(qb, 3, sub == "brute")
+    assert probe.attrs == {"partitions_scored": P, "partitions_probed": int((probes >= 0).sum()),
+                           "partitions_pruned": int((probes < 0).sum()), "nprobe": 3}
+    want = _groups(probes)
+    assert [g.attrs["pid"] for g in groups] == list(want)
+    n_rows = eng.index.summaries.n_rows
+    for g in groups:
+        pid, n = g.attrs["pid"], want[g.attrs["pid"]].size
+        assert g.attrs == {"pid": pid, "queries": n, "bucket": _batch_bucket(n, NQ),
+                           "rows_real": int(n_rows[pid]),
+                           "rows": tpart.row_bucket(int(n_rows[pid]))}
+        assert g.duration > 0
+    execute = _named(root, "execute")[0]
+    assert all(s in execute.children for s in [probe, merge, *groups])
+    events = [e.name for e in prof.events()]
+    assert events.count("probe") == 1 and events.count("merge") == 1
+    assert events.count("group") == len(groups)
+    off = eng.search(qb, params)
+    assert_bit_equal(res, off, f"{mode}/{sub}")
+    assert torch.equal(res.n_dist_evals, off.n_dist_evals)
+
+
+@pytest.mark.parametrize("mode,sub", SPAN_CASES)
+def test_unprofiled_partitioned_search_records_nothing(saved, flat_and_part, data, mode, sub,
+                                                       monkeypatch):
+    """Without a profiler or a sampled request the searcher's span sites
+    make no span, enter no profiler record and keep nothing."""
+    from repro_torch.obs import trace as obs_trace
+
+    eng = _span_engine(saved, flat_and_part, mode)
+    qb = batches(data)["one_of"]
+    params = tapi.SearchParams(k=K, nprobe=3, sub_backend=sub)
+    eng.search(qb, params)
+    made = []
+
+    class Counted(obs_trace.Span):
+        __slots__ = ()
+
+        def __init__(self, *a, **kw):
+            made.append(a)
+            super().__init__(*a, **kw)
+
+    def no_record(name):
+        raise AssertionError(f"record_function({name!r}) without a profiler")
+
+    monkeypatch.setattr(obs_trace, "Span", Counted)
+    monkeypatch.setattr(obs_trace._profiler, "record_function", no_record)
+    obs_trace.PROFILED.clear()
+    eng.search(qb, params)
+    assert made == [] and obs_trace.profiled_traces() == []
 
 
 # ---------------------------------------------------------------------------
